@@ -12,12 +12,14 @@ import sys
 import numpy as np
 
 from newsched_tpu.models import fm_channelizer
+from newsched_tpu.utils.platform import enable_compile_cache
 
 NCHANS = 64
 N_OUT = 4096  # audio-rate vector samples to produce
 
 
 def main():
+    enable_compile_cache()
     fg, blocks = fm_channelizer(nchans=NCHANS, n_samples=N_OUT,
                                 sink="vector", batch_size=1 << 17)
     if "--mesh" in sys.argv[1:]:

@@ -9,9 +9,11 @@ import numpy as np
 from newsched_tpu import Flowgraph
 from newsched_tpu.blocks import general, math as gmath
 from newsched_tpu.runtime.distributed import Runtime, partition_flowgraph
+from newsched_tpu.utils.platform import enable_compile_cache
 
 
 def main():
+    enable_compile_cache()
     data = (np.arange(4096) % 17).astype(np.complex64)
     fg = Flowgraph(batch_size=1024)
     src = general.vector_source(data, tags=[(0, "start"), (4000, "near_end")])

@@ -11,6 +11,7 @@ import numpy as np
 
 from newsched_tpu.blocks import general
 from newsched_tpu.models import wbfm_receiver
+from newsched_tpu.utils.platform import enable_compile_cache
 
 FS = 1e6
 CENTER = 200e3
@@ -27,6 +28,7 @@ def synthesize_station():
 
 
 def main():
+    enable_compile_cache()
     iq = synthesize_station()
     fg, blocks = wbfm_receiver(
         fs=FS, center_freq=CENTER, deviation=DEV,

@@ -1,9 +1,9 @@
-"""Round-5 capstone: retune a RUNNING fused wbfm receiver over the
-authenticated control socket.
+"""Retune a RUNNING fused wbfm receiver over the authenticated control
+socket.
 
-Three round-5 features in one graph:
-  - the fused wbfm receive chain (xlate -> demod -> resampler as ONE
-    Pallas kernel with the banded xlate) running as a partition;
+Three features in one graph:
+  - the one-block wbfm receive chain (xlate -> demod -> resampler,
+    ops/wbfm_chain.py) running as a partition;
   - `center_freq` as a RECOMPILE-FENCE parameter: the remote set_param
     rebuilds the rotated-taps plan and the runner retraces at the next
     batch boundary (runtime/block.py ParamSpec.fence);
@@ -11,7 +11,7 @@ Three round-5 features in one graph:
     (runtime/control.py) — an unkeyed client is rejected BEFORE its
     pickle is ever deserialized.
 
-Runs everywhere (interpret-mode kernel on CPU): a two-tone input carries
+Runs on any backend: a two-tone input carries
 stations at 231.25 kHz and 331.25 kHz; the receiver starts tuned near
 the first, then a RuntimeClient retunes near the second mid-stream,
 and the audio shows the re-lock.
@@ -22,16 +22,12 @@ import time
 
 import numpy as np
 
-import jax
-
-if jax.default_backend() == "cpu":
-    pass  # interpret kernels below
-
 from newsched_tpu.blocks import analog, general
 from newsched_tpu.ops import firdes
 from newsched_tpu.runtime.control import RuntimeClient
 from newsched_tpu.runtime.distributed import Runtime, partition_flowgraph
 from newsched_tpu.runtime.graph import Flowgraph
+from newsched_tpu.utils.platform import enable_compile_cache
 
 FS = 1e6
 F1, F2 = 231_250.0, 331_250.0
@@ -42,7 +38,7 @@ KEY = b"round5-demo-key"
 
 
 def main():
-    interpret = jax.default_backend() == "cpu"
+    enable_compile_cache()
     n = BATCH * N_BATCHES
     t = np.arange(BATCH * 4) / FS
     x = (np.exp(2j * np.pi * F1 * t)
@@ -53,8 +49,7 @@ def main():
     thr = general.throttle(n / 1.0)  # ~1 s stream: time to retune it
     rcv = analog.wbfm_rcv_fused(
         firdes.low_pass(1.0, FS, 100e3, 30e3), center_freq=200e3, fs=FS,
-        decim=4, deviation=DEV, resamp_decim=5, interpret=interpret,
-        name="rcv0")
+        decim=4, deviation=DEV, resamp_decim=5, name="rcv0")
     hd = general.head(n // 20, dtype="rf32")
     snk = general.vector_sink(dtype="rf32")
     fg.connect(src, 0, thr, 0)

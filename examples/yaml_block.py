@@ -7,6 +7,7 @@ import numpy as np
 from newsched_tpu import Flowgraph
 from newsched_tpu.blocks import general
 from newsched_tpu.runtime.blockspec import block_from_yaml, grc_yaml
+from newsched_tpu.utils.platform import enable_compile_cache
 
 DESCRIPTOR = """
 module: examples
@@ -27,6 +28,7 @@ expr: "20 * jnp.log10(jnp.maximum(jnp.abs(in_), 1e-30) / ref)"
 
 
 def main():
+    enable_compile_cache()
     db_scale = block_from_yaml(DESCRIPTOR)
     x = np.array([1.0, 0.1, 10.0, 0.5] * 64, np.float32)
     fg = Flowgraph(batch_size=64)

@@ -1,7 +1,7 @@
-"""newsched_tpu — a TPU-native streaming DSP dataflow framework.
+"""newsched_tpu — a streaming DSP dataflow framework for JAX/XLA accelerators.
 
 A ground-up rebuild of the capabilities of mormj/newsched (the GNU Radio 4.0
-runtime prototype; see SURVEY.md) designed TPU-first:
+runtime prototype; see SURVEY.md) designed compile-first:
 
 - Blocks are pure functions ``(state, ins, params) -> (state, outs)`` over
   fixed-size time batches, described by a declarative spec (ports, dtypes,
@@ -14,12 +14,12 @@ runtime prototype; see SURVEY.md) designed TPU-first:
 - Inter-batch state (FIR overlap tails, IIR/NCO/AGC/PFB state) is an explicit
   pytree threaded through the scan — replacing newsched's ring-buffer history.
 - Scaling is ``jax.sharding.Mesh`` + ``shard_map``: channel-axis sharding for
-  filterbanks, time-axis sharding with ICI halo exchange for long filters —
+  filterbanks, time-axis sharding with halo exchange for long filters —
   replacing the reference's multi-scheduler partition + ZMQ distributed
   runtime (runtime/runtime_proxy.h, buffer_net_zmq.h).
 
 Package layout:
-  ops/      pure DSP kernels (jnp + Pallas)  — reference kernel/ and cusp
+  ops/      pure DSP kernels and fused chains (jnp/lax) — reference kernel/ and cusp
   runtime/  graph model, compiler, streaming runner, tags, params, messages
   blocks/   the block library                — reference blocklib/
   models/   prebuilt flagship flowgraphs (FM receiver, channelizers)

@@ -1,4 +1,4 @@
-"""The block library — TPU-native rebuild of the reference's blocklib/.
+"""The block library — rebuild of the reference's blocklib/.
 
 Modules mirror the reference's layout (SURVEY.md §3.4): general stream
 blocks ("blocks"), math, analog, filter, fft, streamops, fileio, zmq. Each

@@ -1,6 +1,6 @@
 """Audio blocks — reference blocklib/audio (ALSA sink/source).
 
-TPU pods have no sound hardware; the portable capability is WAV-file
+Accelerator hosts usually have no sound hardware; the portable capability is WAV-file
 backed audio (scipy.io.wavfile), with live playback delegated to whatever
 `sounddevice`-style stack exists on the host (import-gated like soapy).
 """
@@ -73,7 +73,7 @@ class wav_source(Block):
 # Complete ctypes driver against libasound's "simple setup" API
 # (snd_pcm_set_params + writei/readi with xrun recovery) — the same calls
 # the reference's audio_alsa_sink/source make. Gated on the library's
-# presence: TPU pods ship no sound stack, so `alsa_available()` is False
+# presence: accelerator hosts often ship no sound stack, so `alsa_available()` is False
 # there and wav_sink/wav_source are the portable capability.
 
 _SND_PCM_STREAM_PLAYBACK = 0

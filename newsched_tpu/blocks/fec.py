@@ -1,7 +1,7 @@
 """FEC blocks: convolutional encoder / Viterbi decoder, interleavers.
 
 Maps the reference's (minimal) blocklib/fec — GNU Radio's gr-fec CC
-encoder/decoder pair — onto the TPU kernels in ops/fec.py. Streams carry
+encoder/decoder pair — onto the kernels in ops/fec.py. Streams carry
 hard bits (ri16 0/1) on the encoder side and soft metrics (rf32 LLRs,
 positive = 1 more likely) into the decoder.
 

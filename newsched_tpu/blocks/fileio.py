@@ -3,7 +3,7 @@
 These are host-boundary blocks: file_source stages batches host->device
 (memory-mapped read, so the OS page cache is the ring buffer), file_sink
 drains device->host. Their presence switches the runner to loop mode with
-async dispatch, which overlaps file IO with device compute — the TPU analog
+async dispatch, which overlaps file IO with device compute — the analog
 of the reference's double-mapped buffer feeding a worker thread.
 """
 

@@ -107,22 +107,15 @@ class iir_filter(Block):
 
 
 class fft_filter(Block):
-    """Overlap-save fast-convolution FIR (reference filter::fft_filter).
-
-    fft_method selects the transform engine: "xla" (native FFT, f32
-    ~130 dB), "mxu" (Bailey 4-step matmul fast-conv, ops/fftops.py —
-    1.84x the XLA FFT pair on v5e at the house 3-pass-bf16 ~90 dB tier),
-    or "auto" (mxu exactly when its constraints hold on a TPU backend)."""
+    """Overlap-save fast-convolution FIR (reference filter::fft_filter) on
+    XLA's float32 FFT pair."""
 
     def __init__(self, taps, decim: int = 1, dtype="cf32", fft_size: int | None = None,
-                 fft_method: str = "auto", name=None):
+                 name=None):
         super().__init__(name)
-        if fft_method not in ("auto", "xla", "mxu"):
-            raise ValueError(f"fft_method {fft_method!r} not in auto/xla/mxu")
         self.taps = np.asarray(taps)
         self.decim = int(decim)
         self.fft_size = fft_size
-        self.fft_method = fft_method
         self.relative_rate = Fraction(1, self.decim)
         d = port_dtype(dtype)
         self.dtype = d
@@ -135,7 +128,6 @@ class fft_filter(Block):
     def work(self, state, ins, params, nout):
         st, y = fir_ops.fir_filter(self.taps, state, ins["in"],
                                    decim=self.decim, method="fft",
-                                   fft_method=self.fft_method,
                                    fft_size=self.fft_size)
         return st, {"out": y}
 

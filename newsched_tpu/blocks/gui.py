@@ -1,5 +1,5 @@
 """Headless visualization sinks — reference blocklib/qtgui (time_sink,
-freq_sink). No Qt in a TPU pod: these render to PNG files with matplotlib
+freq_sink). No Qt on an accelerator host: these render to PNG files with matplotlib
 (agg backend) at finalize time, and keep the collected arrays accessible —
 the observability role of the reference's GUI sinks in a headless world.
 """
@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from newsched_tpu.blocks.general import vector_sink
+from newsched_tpu.utils.optional import require
 
 
 class time_sink(vector_sink):
@@ -23,8 +24,7 @@ class time_sink(vector_sink):
     def finalize(self, collected, total):
         super().finalize(collected, total)
         if self.png_path:
-            import matplotlib
-
+            matplotlib = require("matplotlib", "matplotlib", "PNG rendering")
             matplotlib.use("Agg")
             import matplotlib.pyplot as plt
 
@@ -69,8 +69,7 @@ class freq_sink(vector_sink):
         self._psd = 10 * np.log10(spec + 1e-20)
         self._freqs = np.fft.fftshift(np.fft.fftfreq(n, 1 / self.sampling_freq))
         if self.png_path:
-            import matplotlib
-
+            matplotlib = require("matplotlib", "matplotlib", "PNG rendering")
             matplotlib.use("Agg")
             import matplotlib.pyplot as plt
 

@@ -1,6 +1,6 @@
 """SoapySDR hardware source/sink — reference blocklib/soapy.
 
-SDR hardware and the SoapySDR library are absent on TPU pods, so these
+SDR hardware and the SoapySDR library are absent on most accelerator hosts, so these
 blocks are import-gated: construction succeeds only if the `SoapySDR`
 python module is importable; otherwise a clear error tells the user the
 capability exists but needs the driver stack. The streaming path reuses

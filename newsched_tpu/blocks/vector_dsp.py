@@ -3,8 +3,8 @@
 The reference runs one block chain per channel after a channelizer (its
 GRC-level fanout of M demod chains); here a single block processes all M
 channels as one batched kernel — the per-channel axis IS the hardware
-vector lane / mesh axis, which is the whole point of the TPU rebuild
-(SURVEY.md §3.6 "channel fan-out -> data parallelism over channels").
+vector lane / mesh axis (SURVEY.md §3.6 "channel fan-out -> data
+parallelism over channels").
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ class vector_quad_demod(Block):
         xprev = jnp.concatenate([state["prev"][None, :], x[:-1]], axis=0)
         p = jnp.conj(xprev) * x
         # Zero-history convention: pinned to exactly 0, as in every other
-        # demod path (ops/analog.py, parallel/channelizer.py, mega-kernel).
+        # demod path (ops/analog.py, parallel/channelizer.py, ops/fm_chain.py).
         y = jnp.where((xprev == 0) | (x == 0), jnp.float32(0),
                       jnp.arctan2(jnp.imag(p), jnp.real(p))) * params["gain"]
         return {"prev": x[-1]}, {"out": y.astype(jnp.float32)}
@@ -100,81 +100,9 @@ class channel_select(Block):
         return state, {"out": ins["in"][:, self.channel]}
 
 
-class fm_channelizer_fused(Block):
-    """DEPRECATED round-2 variant — use ``cplx_to_planes ->
-    fm_channelizer_fused_planes`` instead (``models.fm_channelizer(
-    fused=True)`` builds exactly that for any cf32 source). This block
-    keeps the round-2 cf32 interface: it pays a per-batch planes-layout
-    prep pass inside work() and has NO ``work_sharded`` hook, so it
-    cannot lower itself under ``fg.run(mesh=...)``. It remains only so
-    round-2-era graphs keep running (one DeprecationWarning per
-    construction).
-
-    cf32 scalar stream in -> rf32[(M,)] audio vector stream at rate
-    1/(M*decim), backed by the same mega-kernel (ops/pallas/fm_chain.py).
-    Requires a TPU backend unless interpret=True, and a flowgraph
-    batch_size of at least nchans * (len(audio_taps) - 1).
-    """
-
-    def __init__(self, nchans: int, taps, audio_taps, audio_decim: int = 8,
-                 gain: float = 1.0, taps_per_arm: int | None = None,
-                 interpret: bool = False, name=None):
-        import warnings
-
-        warnings.warn(
-            "fm_channelizer_fused (cf32 input) is deprecated: use "
-            "cplx_to_planes -> fm_channelizer_fused_planes (or "
-            "models.fm_channelizer(fused=True)) — no prep pass, and it "
-            "shards under fg.run(mesh=...)", DeprecationWarning,
-            stacklevel=2)
-        super().__init__(name)
-        from newsched_tpu.ops import firdes, pfb as pfb_ops
-
-        self.nchans = int(nchans)
-        if taps is None:
-            taps = firdes.prototype_channelizer_taps(self.nchans,
-                                                     taps_per_arm or 16)
-        self.arm = pfb_ops.pfb_arm_taps(np.asarray(taps, np.float32), self.nchans)
-        self.fold_c = np.asarray(self.arm)[::-1, ::-1].T.copy()
-        self.audio_taps = np.asarray(audio_taps, np.float32)
-        self.audio_decim = int(audio_decim)
-        self.gain = float(gain)
-        self.interpret = bool(interpret)
-        self.relative_rate = Fraction(1, self.nchans * self.audio_decim)
-        self.add_input("in", "cf32")
-        self.add_output("out", "rf32", item_shape=(self.nchans,))
-
-    def init_state(self, nin, nout):
-        M = self.nchans
-        A = len(self.audio_taps)
-        return {
-            "tail": jnp.zeros((self.arm.size - 1,), jnp.complex64),
-            "prev": jnp.zeros((1, 2 * M), jnp.float32),
-            "atail": jnp.zeros((A - 1, 2 * M), jnp.float32),
-        }
-
-    def work(self, state, ins, params, nout):
-        from newsched_tpu.ops.pallas.fm_chain import fm_chain_step
-
-        M = self.nchans
-        L = self.arm.shape[1]
-        x = ins["in"]
-        n_out = int(x.shape[0]) // M
-        xfull = jnp.concatenate([state["tail"], x])
-        V = xfull[: (L - 1 + n_out) * M].reshape(L - 1 + n_out, M)
-        aud, prev, atail = fm_chain_step(
-            jnp.real(V).astype(jnp.float32), jnp.imag(V).astype(jnp.float32),
-            state["prev"], state["atail"], self.fold_c, self.audio_taps,
-            self.audio_decim, self.gain, n_out,
-            tile=min(512, n_out), interpret=self.interpret)
-        new_state = {"tail": xfull[-(self.arm.size - 1):], "prev": prev,
-                     "atail": atail}
-        return new_state, {"out": aud}
-
-
 class cplx_to_planes(Block):
     """Adapter: cf32 scalar stream -> the planes-rows stream format of the
-    fused FM chain (ops/pallas/fm_chain.py): rf32[(2M,)] rows, row k =
+    fused FM chain (ops/fm_chain.py): rf32[(2M,)] rows, row k =
     [re | im] of x[kM-(M-1) .. kM]. Carries the M-1-sample skew between
     batches. Native planes sources (noise_planes_source, or
     vector_source over parallel.channelizer.planes_rows data) skip this
@@ -201,71 +129,32 @@ class cplx_to_planes(Block):
 
 
 class noise_planes_source(Block):
-    """Gaussian noise emitted directly in planes-rows format — the
-    no-prep-pass producer for the fused FM chain (each lane is an i.i.d.
-    draw, so the M-1-sample skew of the row convention is immaterial).
+    """Gaussian noise emitted directly in planes-rows format, the producer
+    that feeds fm_channelizer_fused_planes its native stream (each lane is
+    an i.i.d. draw, so the M-1-sample skew of the row convention is
+    immaterial).
 
-    method="pallas" (default on a TPU backend) generates with the chip's
-    hardware PRNG + Irwin-Hall transform (ops/pallas/noise.py): measured
-    40 us/flagship-batch vs 147 us for XLA threefry+erfinv — the round-3
-    live-vs-replay gap was mostly this source (BASELINE.md round-4 live
-    ledger). The pallas stream is deterministic in (seed, absolute stream
-    position) with 64-row group granularity, so the gen-mode mega-kernel
-    (fm_noise_channelizer_source) emits the bit-identical stream.
-    method="threefry" keeps the portable jax.random path (CPU tests,
-    interpret mode); "auto" picks pallas exactly when the default backend
-    is a TPU and the batch is a multiple of 64 rows. method="pure"
-    (round 5, opt-in) is the portable POSITION-PURE stream
-    (ops/pallas/noise.py pure_rows — the threefry twin of the hardware
-    contract): runs on any backend, partitions cleanly under
-    fg.run(mesh=...), and is batch-size-invariant in (seed, absolute
-    group) — unlike "threefry", whose key-chaining makes the stream
-    depend on the batch split.
+    method="threefry" (default) draws each batch from a jax.random key
+    that advances per batch, so the stream depends on the batch size.
+    method="pure" is the position-pure stream of ops/noise.py: a function
+    of (seed, absolute row group) alone, batch-size-invariant, and the
+    stream the live flagship source generates (batches in multiples of
+    GROUP_ROWS rows).
     """
 
     def __init__(self, nchans: int, amplitude: float = 1.0, seed: int = 0,
-                 method: str = "auto", name=None):
+                 method: str = "threefry", name=None):
         super().__init__(name)
-        if method not in ("auto", "pallas", "threefry", "pure"):
-            raise ValueError(
-                f"method {method!r} not in auto/pallas/threefry/pure")
+        if method not in ("threefry", "pure"):
+            raise ValueError(f"method {method!r} not in threefry/pure")
         self.nchans = int(nchans)
         self.seed = int(seed)
         self.method = method
         self.add_output("out", "rf32", item_shape=(2 * self.nchans,))
         self.declare_param("amplitude", amplitude, dtype=np.float32)
 
-    def _use_pallas(self, nout: int) -> bool:
-        from newsched_tpu.ops.pallas.noise import GROUP_ROWS
-        from newsched_tpu.runtime import meshctx
-
-        if self.method in ("threefry", "pure"):
-            return False
-        if meshctx.current() is not None:
-            # Under graph-mesh lowering XLA's SPMD partitioner cannot split
-            # a pallas_call; the threefry path partitions cleanly. (The
-            # mega-kernel blocks shard via their work_sharded hooks
-            # instead.)
-            if self.method == "pallas":
-                raise ValueError(
-                    "noise_planes_source(method='pallas') cannot run under "
-                    "fg.run(mesh=...): use method='threefry' or the "
-                    "gen-fused source block")
-            return False
-        on_tpu = jax.default_backend() not in ("cpu",)
-        if self.method == "pallas":
-            if nout % GROUP_ROWS:
-                raise ValueError(
-                    f"noise_planes_source(method='pallas') needs batches in "
-                    f"multiples of {GROUP_ROWS} rows, got {nout}")
-            if not on_tpu:
-                raise ValueError("method='pallas' requires a TPU backend "
-                                 "(Mosaic's PRNG has no CPU lowering)")
-            return True
-        return on_tpu and nout % GROUP_ROWS == 0
-
     def init_state(self, nin, nout):
-        from newsched_tpu.ops.pallas.noise import GROUP_ROWS
+        from newsched_tpu.ops.noise import GROUP_ROWS
 
         if self.method == "pure":
             if nout % GROUP_ROWS:
@@ -274,42 +163,14 @@ class noise_planes_source(Block):
                     f"multiples of {GROUP_ROWS} rows, got {nout}")
             return {"ghi": jnp.zeros((), jnp.int32),
                     "glo": jnp.zeros((), jnp.int32)}
-        if self._use_pallas(nout):
-            return {"ghi": jnp.zeros((), jnp.int32),
-                    "glo": jnp.zeros((), jnp.int32)}
-        return {"key": jax.random.PRNGKey(self.seed)}
-
-    def init_state_sharded(self, nin, nout, mesh, axis):
-        # Graph-mesh runs take the threefry or pure path (work() branches
-        # on the method/state shape): XLA's SPMD partitioner cannot split
-        # a pallas_call. The gen-fused source blocks shard via
-        # work_sharded; "pure" partitions cleanly (plain XLA).
-        if self.method == "pallas":
-            raise ValueError(
-                f"{type(self).__name__}(method='pallas') cannot run under "
-                f"fg.run(mesh=...): use method='threefry'/'pure' (or "
-                f"'auto') or a gen-fused source block")
-        if self.method == "pure":
-            return self.init_state(nin, nout)
         return {"key": jax.random.PRNGKey(self.seed)}
 
     def work(self, state, ins, params, nout):
-        from newsched_tpu.ops.pallas.noise import (GROUP_ROWS,
-                                                   advance_groups)
+        from newsched_tpu.ops.noise import GROUP_ROWS, advance_groups, pure_rows
 
         if self.method == "pure":
-            from newsched_tpu.ops.pallas.noise import pure_rows
-
             r = pure_rows(self.seed, state["ghi"], state["glo"], nout,
                           2 * self.nchans)
-            hi, lo = advance_groups(state["ghi"], state["glo"],
-                                    nout // GROUP_ROWS)
-            return {"ghi": hi, "glo": lo}, {"out": r * params["amplitude"]}
-        if "ghi" in state:
-            from newsched_tpu.ops.pallas.noise import gaussian_rows
-
-            r = gaussian_rows(state["ghi"], state["glo"], n_rows=nout,
-                              width=2 * self.nchans, seed=self.seed)
             hi, lo = advance_groups(state["ghi"], state["glo"],
                                     nout // GROUP_ROWS)
             return {"ghi": hi, "glo": lo}, {"out": r * params["amplitude"]}
@@ -318,290 +179,149 @@ class noise_planes_source(Block):
         return {"key": key}, {"out": r * params["amplitude"]}
 
 
-class fm_noise_channelizer_source(Block):
-    """The LIVE flagship as ONE source kernel: Gaussian noise generated
-    in-VMEM (hardware PRNG, ops/pallas/noise.py) feeding the fused FM
-    chain (ops/pallas/fm_chain.py fm_chain_gen_step) with zero input HBM
-    traffic — no source->block stream exists at all. Emits rf32[(M,)]
-    audio items; the noise stream is BIT-IDENTICAL to
-    ``noise_planes_source(method="pallas", seed, amplitude)`` ->
-    ``fm_channelizer_fused_planes`` with the same chain parameters
-    (tested on the TPU tier), the graph just skips that pipeline's
-    2x16.8 MB per-batch HBM round trip. TPU only.
+def _fold_coeffs(nchans: int, taps, taps_per_arm):
+    """(L, M) arm-fold coefficients of the channelizer prototype (the
+    ``c`` of ops/pfb.py)."""
+    from newsched_tpu.ops import firdes, pfb as pfb_ops
 
-    Reference: SURVEY.md §3.4 noise_source + §3.3 cusp fused chains —
-    the reference's benchmark sources are ~free next to its chains; this
-    block is how a TPU-native design gets the same property.
+    if taps is None:
+        taps = firdes.prototype_channelizer_taps(nchans, taps_per_arm or 16)
+    arm = pfb_ops.pfb_arm_taps(np.asarray(taps, np.float32), nchans)
+    return np.asarray(arm)[::-1, ::-1].T.copy()
+
+
+class fm_noise_channelizer_source(Block):
+    """The LIVE flagship as ONE source block: position-pure Gaussian noise
+    (ops/noise.py) generated per batch in planes-rows format and run
+    through the FM chain (ops/fm_chain.py). Emits rf32[(M,)] audio items.
+
+    The noise is a function of (seed, absolute row group), so the chain's
+    input history is regenerated each batch instead of carried: the only
+    state is the 64-bit group counter. Equals ``noise_planes_source(
+    method="pure", seed, amplitude) -> fm_channelizer_fused_planes`` with
+    the same chain parameters. Under fg.run(mesh=...) each device
+    generates its own time shard: no collectives.
     """
 
     def __init__(self, nchans: int, taps, audio_taps, audio_decim: int = 8,
                  gain: float = 1.0, amplitude: float = 1.0, seed: int = 0,
-                 taps_per_arm: int | None = None, precision="split3",
-                 generator: str = "auto", interpret: bool = False,
-                 noise_draws: int = 3, name=None):
-        # noise_draws: hardware-PRNG draws per element (Irwin-Hall
-        # N=2*draws). 3 (N=6) is the default stream; 2 (N=4) is the
-        # measured cheaper option (live flagship 140.9 -> 119.8 us/batch,
-        # +17.6%, BASELINE.md round-5 note) with support +-3.46 sigma and
-        # excess kurtosis -0.3 — a DIFFERENT stream (draws is part of the
-        # stream identity). The pure generator ignores it.
+                 taps_per_arm: int | None = None,
+                 precision=jax.lax.Precision.HIGHEST,
+                 name=None):
         super().__init__(name)
-        from newsched_tpu.ops import firdes, pfb as pfb_ops
-        from newsched_tpu.ops.pallas.fm_chain import _round8
-
-        if generator not in ("auto", "hw", "pure"):
-            raise ValueError(f"generator {generator!r} not in auto/hw/pure")
-        if noise_draws not in (2, 3):
-            raise ValueError(f"noise_draws {noise_draws} not in (2, 3)")
-        self.noise_draws = int(noise_draws)
         self.nchans = int(nchans)
-        if taps is None:
-            taps = firdes.prototype_channelizer_taps(self.nchans,
-                                                     taps_per_arm or 16)
-        self.arm = pfb_ops.pfb_arm_taps(np.asarray(taps, np.float32), self.nchans)
-        self.fold_c = np.asarray(self.arm)[::-1, ::-1].T.copy()
+        self.fold_c = _fold_coeffs(self.nchans, taps, taps_per_arm)
         self.audio_taps = np.asarray(audio_taps, np.float32)
         self.audio_decim = int(audio_decim)
         self.gain = float(gain)
         self.seed = int(seed)
         self.precision = precision
-        self.generator = generator
-        self.interpret = bool(interpret)
-        self.h8 = _round8(self.arm.shape[1] - 1)
         self.add_output("out", "rf32", item_shape=(self.nchans,))
         self.declare_param("amplitude", amplitude, dtype=np.float32)
 
-    def _gen(self) -> str:
-        """Resolve the generator: the hardware-PRNG in-kernel path on a TPU
-        backend, the portable position-pure threefry twin elsewhere
-        (ops/pallas/noise.py pure_rows — SAME (seed, position) contract,
-        DIFFERENT bit stream; documented in migrating.md)."""
-        if self.generator != "auto":
-            return self.generator
-        on_tpu = jax.default_backend() not in ("cpu",) and not self.interpret
-        return "hw" if on_tpu else "pure"
+    def _rows(self, nout: int) -> int:
+        from newsched_tpu.ops.noise import GROUP_ROWS
+
+        n = int(nout) * self.audio_decim
+        if n % GROUP_ROWS:
+            raise ValueError(
+                f"{self.name}: batch rows {n} must be a multiple of the "
+                f"noise group ({GROUP_ROWS} rows)")
+        return n
 
     def init_state(self, nin, nout):
-        M = self.nchans
-        A = len(self.audio_taps)
-        return {
-            "ghi": jnp.zeros((), jnp.int32),
-            "glo": jnp.zeros((), jnp.int32),
-            "carry": jnp.zeros((self.h8, 2 * M), jnp.float32),
-            "prev": jnp.zeros((1, 2 * M), jnp.float32),
-            "atail": jnp.zeros((A - 1, 2 * M), jnp.float32),
-        }
-
-    def work(self, state, ins, params, nout):
-        from newsched_tpu.ops.pallas.noise import GROUP_ROWS, advance_groups
-
-        n_loc = int(nout) * self.audio_decim
-        if self._gen() == "hw":
-            from newsched_tpu.ops.pallas.fm_chain import fm_chain_gen_step
-
-            aud, prev, atail, carry = fm_chain_gen_step(
-                state["ghi"], state["glo"], params["amplitude"],
-                state["carry"], state["prev"], state["atail"], self.fold_c,
-                self.audio_taps, self.audio_decim, self.gain, n_loc,
-                seed=self.seed, precision=self.precision,
-                noise_draws=self.noise_draws)
-        else:
-            # Portable twin: rows generated by the position-pure threefry
-            # stream in XLA, chained into the planes mega-kernel (interpret
-            # mode off-TPU). Same streaming state layout as the hw path.
-            from newsched_tpu.ops.pallas.fm_chain import fm_chain_step_planes
-            from newsched_tpu.ops.pallas.noise import pure_rows
-
-            rows = pure_rows(self.seed, state["ghi"], state["glo"], n_loc,
-                             2 * self.nchans) * params["amplitude"]
-            aud, prev, atail = fm_chain_step_planes(
-                rows, state["carry"], state["prev"], state["atail"],
-                self.fold_c, self.audio_taps, self.audio_decim, self.gain,
-                interpret=self.interpret, precision=self.precision)
-            carry = (rows[-self.h8:] if n_loc >= self.h8
-                     else jnp.concatenate([state["carry"], rows])[-self.h8:])
-        hi, lo = advance_groups(state["ghi"], state["glo"],
-                                n_loc // GROUP_ROWS)
-        return ({"ghi": hi, "glo": lo, "carry": carry, "prev": prev,
-                 "atail": atail}, {"out": aud})
-
-    # -- graph-level sharding (VERDICT r4 item #1): the LIVE flagship under
-    # fg.run(mesh=...). The noise stream is a pure function of
-    # (seed, absolute group) — so each device generates its OWN absolute
-    # group range, regenerates its fold halo and its demod/audio junction
-    # state in-kernel from `warm` recomputed rows, and the step needs ZERO
-    # collectives: the only cross-batch state is the replicated 64-bit
-    # group counter. (The carried single-device state disappears entirely —
-    # this is the payoff of the position-pure determinism contract,
-    # ops/pallas/noise.py.)
-
-    def _sharded_geometry(self, n_rows_tot: int, n_dev: int):
-        from newsched_tpu.ops.pallas.fm_chain import _pick_tile
-        from newsched_tpu.ops.pallas.noise import GROUP_ROWS
-
-        if n_rows_tot % n_dev:
-            raise ValueError(
-                f"{self.name}: batch rows {n_rows_tot} not divisible by "
-                f"mesh time axis {n_dev}")
-        n_loc = n_rows_tot // n_dev
-        if n_loc % GROUP_ROWS:
-            raise ValueError(
-                f"{self.name}: per-device rows {n_loc} must be a multiple "
-                f"of the noise group ({GROUP_ROWS} rows)")
-        A = len(self.audio_taps)
-        if self.h8 > GROUP_ROWS:
-            raise ValueError(
-                f"{self.name}: PFB halo {self.h8} rows exceeds one noise "
-                f"group ({GROUP_ROWS}): sharded halo regeneration covers "
-                f"one group (taps_per_arm <= {GROUP_ROWS + 1})")
-        tile = _pick_tile(n_loc, min(512, n_loc), self.audio_decim)
-        if tile % GROUP_ROWS or tile < self.h8 or A - 1 > tile:
-            raise ValueError(
-                f"{self.name}: per-device rows {n_loc} give tile {tile}; "
-                f"need a multiple of {GROUP_ROWS} with tile >= "
-                f"max(H8 {self.h8}, A-1 {A - 1}) — use a larger batch")
-        warm = tile
-        need_warm = -(-A // self.audio_decim) * self.audio_decim
-        if warm < need_warm:
-            raise ValueError(
-                f"{self.name}: warm {warm} rows cannot rebuild the {A}-tap "
-                f"audio state; use a larger batch")
-        return n_loc, tile, warm
-
-    def init_state_sharded(self, nin, nout, mesh, axis):
-        # Validate geometry at compile time so a bad mesh/batch combination
-        # raises a framework error here, not a Mosaic crash at trace time.
-        self._sharded_geometry(int(nout) * self.audio_decim, mesh.shape[axis])
+        self._rows(nout)
         return {"ghi": jnp.zeros((), jnp.int32),
                 "glo": jnp.zeros((), jnp.int32)}
 
+    def _audio(self, ghi, glo, amp, n: int):
+        """Audio for the n rows starting at group (ghi, glo)."""
+        from newsched_tpu.ops.fm_chain import fm_chain_rows, history_rows
+        from newsched_tpu.ops.noise import (GROUP_ROWS, add_groups_signed,
+                                            pure_rows)
+
+        h = history_rows(self.fold_c.shape[0], len(self.audio_taps))
+        back = -(-h // GROUP_ROWS)
+        hi, lo = add_groups_signed(ghi, glo, -back)
+        rows = pure_rows(self.seed, hi, lo, back * GROUP_ROWS + n,
+                         2 * self.nchans, mask_pre=True) * amp
+        return fm_chain_rows(rows[back * GROUP_ROWS - h:], self.fold_c,
+                             self.audio_taps, self.audio_decim, self.gain,
+                             self.precision)
+
+    def work(self, state, ins, params, nout):
+        from newsched_tpu.ops.noise import GROUP_ROWS, advance_groups
+
+        n = self._rows(nout)
+        aud = self._audio(state["ghi"], state["glo"], params["amplitude"], n)
+        hi, lo = advance_groups(state["ghi"], state["glo"], n // GROUP_ROWS)
+        return {"ghi": hi, "glo": lo}, {"out": aud}
+
     def work_sharded(self, state, ins, params, nout, mesh, axis):
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
+        from jax import shard_map
         from jax.sharding import PartitionSpec as P
 
-        from newsched_tpu.ops.pallas.noise import GROUP_ROWS, advance_groups
+        from newsched_tpu.ops.noise import (GROUP_ROWS, add_groups_signed,
+                                            advance_groups)
 
         nd = mesh.shape[axis]
-        if nd <= 1:
-            return self.work(state, ins, params, nout)
-        n_rows_tot = int(nout) * self.audio_decim
-        n_loc, tile, warm = self._sharded_geometry(n_rows_tot, nd)
-        M = self.nchans
-        hw = self._gen() == "hw"
+        n = self._rows(nout)
+        if (n // GROUP_ROWS) % nd:
+            raise ValueError(f"{self.name}: {n // GROUP_ROWS} row groups per "
+                             f"batch do not split over mesh axis {nd}")
+        n_loc = n // nd
 
         def fn(ghi, glo, amp):
             d = jax.lax.axis_index(axis).astype(jnp.int32)
-            off = d * jnp.int32(n_loc // GROUP_ROWS)
-            if hw:
-                from newsched_tpu.ops.pallas.fm_chain import \
-                    fm_chain_gen_warm_step
-                from newsched_tpu.ops.pallas.noise import add_groups_signed
+            hi, lo = add_groups_signed(ghi, glo, d * (n_loc // GROUP_ROWS))
+            return self._audio(hi, lo, amp, n_loc)
 
-                hi, lo = add_groups_signed(ghi, glo, off)
-                return fm_chain_gen_warm_step(
-                    hi, lo, amp, self.fold_c, self.audio_taps,
-                    self.audio_decim, self.gain, n_loc, warm=warm, tile=tile,
-                    seed=self.seed, precision=self.precision,
-                    noise_draws=self.noise_draws)
-            from newsched_tpu.ops.pallas.fm_chain import (_round8,
-                                                          fm_chain_step_planes)
-            from newsched_tpu.ops.pallas.noise import (add_groups_signed,
-                                                       pure_rows)
-
-            # rows [start - warm - H8, start + n_loc), group-aligned: one
-            # full leading group covers the sub-group H8 offset.
-            h8 = _round8(self.arm.shape[1] - 1)
-            back = warm // GROUP_ROWS + 1
-            hi, lo = add_groups_signed(ghi, glo, off - jnp.int32(back))
-            n_gen = n_loc + warm + GROUP_ROWS
-            rows = pure_rows(self.seed, hi, lo, n_gen, 2 * M,
-                             mask_pre=True) * amp
-            rows = rows[GROUP_ROWS - h8:]
-            halo, vb = rows[: warm + h8], rows[warm + h8:]
-            z1 = jnp.zeros((1, 2 * M), jnp.float32)
-            zt = jnp.zeros((len(self.audio_taps) - 1, 2 * M), jnp.float32)
-            aud, _, _ = fm_chain_step_planes(
-                vb, halo, z1, zt, self.fold_c, self.audio_taps,
-                self.audio_decim, self.gain, warm=warm, tile=tile,
-                interpret=self.interpret, precision=self.precision)
-            return aud
-
-        rep = P()
-        try:
-            smapped = shard_map(fn, mesh=mesh, in_specs=(rep, rep, rep),
-                                out_specs=P(axis, None), check_vma=False)
-        except TypeError:
-            smapped = shard_map(fn, mesh=mesh, in_specs=(rep, rep, rep),
-                                out_specs=P(axis, None), check_rep=False)
-        aud = smapped(state["ghi"], state["glo"], params["amplitude"])
-        hi, lo = advance_groups(state["ghi"], state["glo"],
-                                n_rows_tot // GROUP_ROWS)
+        aud = shard_map(fn, mesh=mesh, in_specs=(P(), P(), P()),
+                        out_specs=P(axis, None))(
+            state["ghi"], state["glo"], params["amplitude"])
+        hi, lo = advance_groups(state["ghi"], state["glo"], n // GROUP_ROWS)
         return {"ghi": hi, "glo": lo}, {"out": aud}
 
 
 class fm_channelizer_fused_planes(Block):
     """The flagship chain as ONE block on the planes-rows stream:
-    rf32[(2M,)] rows in -> rf32[(M,)] audio out at rate 1/decim, backed by
-    the no-prep-pass mega-kernel (ops/pallas/fm_chain.py
-    fm_chain_step_planes). Unlike fm_channelizer_fused (cf32 in), this
-    block pays ZERO per-batch layout conversion — the stream format is the
-    kernel's native format, so source -> this block -> sink compiles to
-    DMA + compute only (BASELINE.md residual #2 eliminated)."""
+    rf32[(2M,)] rows in -> rf32[(M,)] audio out at rate 1/decim, computed
+    by ops/fm_chain.py. The stream format is the chain's native format, so
+    the block pays no per-batch layout conversion. The state is the last
+    ``history_rows`` input rows; the demod and audio-FIR lead-in is
+    recomputed from them each batch."""
 
     def __init__(self, nchans: int, taps, audio_taps, audio_decim: int = 8,
                  gain: float = 1.0, taps_per_arm: int | None = None,
-                 interpret: bool = False, precision="split3", name=None):
+                 precision=jax.lax.Precision.HIGHEST, name=None):
         super().__init__(name)
-        from newsched_tpu.ops import firdes, pfb as pfb_ops
-        from newsched_tpu.ops.pallas.fm_chain import _round8
+        from newsched_tpu.ops.fm_chain import history_rows
 
         self.nchans = int(nchans)
-        if taps is None:
-            taps = firdes.prototype_channelizer_taps(self.nchans,
-                                                     taps_per_arm or 16)
-        self.arm = pfb_ops.pfb_arm_taps(np.asarray(taps, np.float32), self.nchans)
-        self.fold_c = np.asarray(self.arm)[::-1, ::-1].T.copy()
+        self.fold_c = _fold_coeffs(self.nchans, taps, taps_per_arm)
         self.audio_taps = np.asarray(audio_taps, np.float32)
         self.audio_decim = int(audio_decim)
         self.gain = float(gain)
-        self.interpret = bool(interpret)
         self.precision = precision
-        self.h8 = _round8(self.arm.shape[1] - 1)
+        self.hist = history_rows(self.fold_c.shape[0], len(self.audio_taps))
         self.relative_rate = Fraction(1, self.audio_decim)
         self.add_input("in", "rf32", item_shape=(2 * self.nchans,))
         self.add_output("out", "rf32", item_shape=(self.nchans,))
 
     def init_state(self, nin, nout):
-        M = self.nchans
-        A = len(self.audio_taps)
-        return {
-            "carry": jnp.zeros((self.h8, 2 * M), jnp.float32),
-            "prev": jnp.zeros((1, 2 * M), jnp.float32),
-            "atail": jnp.zeros((A - 1, 2 * M), jnp.float32),
-        }
+        return {"carry": jnp.zeros((self.hist, 2 * self.nchans), jnp.float32)}
 
     def work(self, state, ins, params, nout):
-        from newsched_tpu.ops.pallas.fm_chain import fm_chain_step_planes
+        from newsched_tpu.ops.fm_chain import fm_chain_rows
 
-        x = ins["in"]  # (n, 2M) planes rows
-        aud, prev, atail = fm_chain_step_planes(
-            x, state["carry"], state["prev"], state["atail"], self.fold_c,
-            self.audio_taps, self.audio_decim, self.gain,
-            interpret=self.interpret, precision=self.precision)
-        n = int(x.shape[0])
-        carry = (x[-self.h8:] if n >= self.h8
-                 else jnp.concatenate([state["carry"], x])[-self.h8:])
-        return {"carry": carry, "prev": prev, "atail": atail}, {"out": aud}
+        rows = jnp.concatenate([state["carry"], ins["in"]])
+        aud = fm_chain_rows(rows, self.fold_c, self.audio_taps,
+                            self.audio_decim, self.gain, self.precision)
+        return {"carry": rows[-self.hist:]}, {"out": aud}
 
-    # -- graph-level sharding (compiler work_sharded/init_state_sharded
-    # hooks): under fg.run(mesh=...) the block lowers itself through the
-    # same per-time-shard shard_map formulation as
-    # parallel.channelizer.ShardedFMChannelizer.step_planes (ppermute
-    # input halo + warm-up recompute) — Pallas kernels cannot be
-    # auto-partitioned by XLA's SPMD pass, so the block supplies its own.
+    # Under fg.run(mesh=...) the block runs per time shard through
+    # parallel.channelizer.ShardedFMChannelizer.step_planes: one
+    # input-rows ppermute halo, audio stays time-sharded.
 
     def _sharded_pipe(self, mesh, axis):
         from newsched_tpu.parallel.channelizer import ShardedFMChannelizer
@@ -609,39 +329,21 @@ class fm_channelizer_fused_planes(Block):
         key = (tuple(d.id for d in mesh.devices.flat), axis)
         cache = getattr(self, "_sharded_cache", None)
         if cache is None or cache[0] != key:
-            proto = np.asarray(self.arm).T.reshape(-1)  # inverse of pfb_arm_taps
+            proto = self.fold_c.T[::-1, ::-1].T.reshape(-1)  # inverse of pfb_arm_taps
             ch = ShardedFMChannelizer(
                 mesh, self.nchans, proto, self.audio_taps,
                 audio_decim=self.audio_decim, demod_gain=self.gain, axis=axis,
-                chain_method="megakernel", chain_precision=self.precision,
-                interpret=self.interpret)
+                chain_precision=self.precision)
             self._sharded_cache = (key, ch)
         return self._sharded_cache[1]
 
     def init_state_sharded(self, nin, nout, mesh, axis):
-        from newsched_tpu.ops.pallas.fm_chain import _round8
-
-        ch = self._sharded_pipe(mesh, axis)
-        tile, warm = ch._planes_setup(nin)
-        hr = warm + _round8(self.arm.shape[1] - 1)
-        n_dev = mesh.shape[axis]
-        M = self.nchans
-        A = len(self.audio_taps)
-        return {
-            "carry": jnp.zeros((n_dev * hr, 2 * M), jnp.float32),
-            "prev": jnp.zeros((1, 2 * M), jnp.float32),
-            "atail": jnp.zeros((A - 1, 2 * M), jnp.float32),
-        }
+        st = self._sharded_pipe(mesh, axis).init_state_planes(nin)
+        return {"carry": st.carry}
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
         from newsched_tpu.parallel.channelizer import PlanesFMState
 
-        if mesh.shape[axis] <= 1:
-            return self.work(state, ins, params, nout)
-        ch = self._sharded_pipe(mesh, axis)
-        st = PlanesFMState(carry=state["carry"], prev=state["prev"],
-                           tail=state["atail"])
-        aud, st2 = ch.step_planes(ins["in"], st)
-        return ({"carry": st2.carry, "prev": st2.prev, "atail": st2.tail},
-                {"out": aud})
-
+        aud, st = self._sharded_pipe(mesh, axis).step_planes(
+            ins["in"], PlanesFMState(carry=state["carry"]))
+        return {"carry": st.carry}, {"out": aud}

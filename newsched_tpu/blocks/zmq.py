@@ -24,6 +24,7 @@ import numpy as np
 
 from newsched_tpu.runtime.block import Block, StreamAborted
 from newsched_tpu.utils.dtypes import port_dtype
+from newsched_tpu.utils.optional import require
 
 _POLL_MS = 100  # abort-flag check interval while blocked on a socket
 
@@ -91,7 +92,7 @@ class _zmq_sink_base(Block):
         self._abort = False
 
     def start(self):
-        import zmq
+        zmq = require("zmq", "pyzmq", "the zmq blocks")
 
         self._ctx = zmq.Context.instance()
         self._sock = self._ctx.socket(getattr(zmq, self.sock_type))
@@ -111,7 +112,7 @@ class _zmq_sink_base(Block):
         this raises and the local runner's wait() surfaces it, instead of
         blocking on POLLOUT forever (reference: runtime_monitor mirrors
         EXIT in both directions across runtime_proxy, SURVEY.md §4.5)."""
-        import zmq
+        zmq = require("zmq", "pyzmq", "the zmq blocks")
 
         deadline = (None if self.send_timeout_s is None
                     else time.monotonic() + self.send_timeout_s)
@@ -137,7 +138,7 @@ class _zmq_sink_base(Block):
         """Ship an abort frame so downstream partitions fail within one
         batch instead of waiting out their receive timeout (reference:
         runtime_monitor mirroring EXIT across runtime_proxy, SURVEY.md §4.5)."""
-        import zmq
+        zmq = require("zmq", "pyzmq", "the zmq blocks")
 
         if self._sock is not None:
             try:
@@ -150,7 +151,7 @@ class _zmq_sink_base(Block):
     def stop(self):
         if self._sock is not None:
             try:
-                import zmq
+                zmq = require("zmq", "pyzmq", "the zmq blocks")
 
                 # EOF delivery is bounded, not best-effort-once: retry up
                 # to eof_timeout so a live-but-backlogged peer still gets a
@@ -253,7 +254,7 @@ class _zmq_source_base(Block):
         self._abort = False
 
     def start(self):
-        import zmq
+        zmq = require("zmq", "pyzmq", "the zmq blocks")
 
         ctx = zmq.Context.instance()
         self._sock = ctx.socket(getattr(zmq, self.sock_type))

@@ -1,6 +1,6 @@
 // Double-mapped circular buffer + SPSC queue + file pump thread.
 //
-// TPU-native rebuild of the reference's buffer_cpu_vmcirc
+// Rebuild of the reference's buffer_cpu_vmcirc
 // (runtime/include/gnuradio/buffer_cpu_vmcirc*.h): the same pages are
 // mapped twice back-to-back so every read/write window is linear across
 // the wrap — no copy-on-wrap. Where the reference hands these buffers to

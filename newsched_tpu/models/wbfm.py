@@ -14,6 +14,7 @@ same math the graph runs.
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 
 from newsched_tpu.blocks import analog, filter as filt, general
@@ -24,20 +25,18 @@ from newsched_tpu.runtime.graph import Flowgraph
 
 def fir_chain(n_samples: int = 10_000_000, fs: float = 1e6, ntaps: int = 128,
               frequency: float = 123_456.0, batch_size: int | None = None,
-              sink: str = "null", source=None, interpret: bool = False):
+              sink: str = "null", source=None):
     """Config #0: signal_source -> FIR lowpass(ntaps) -> head -> sink.
 
-    source="live" (round 5) runs the WHOLE chain as one gen-fused kernel:
-    the fxpt-NCO tone is generated in VMEM and FIR-filtered in the same
-    pass (blocks.analog.fir_tone_source / ops/pallas/fir_source.py) —
-    zero input HBM, stateless but for the phase counter; shards with zero
-    collectives. Matches the staged chain to f32 accuracy (same fxpt NCO
+    source="live" runs the whole chain as one source block
+    (blocks.analog.fir_tone_source): the fxpt-NCO tone is generated per
+    batch and FIR-filtered in the same step, stateless but for the phase
+    counter. Matches the staged chain to float32 accuracy (same fxpt NCO
     values, same taps)."""
     taps = firdes.low_pass(1.0, fs, 0.2 * fs, 0.05 * fs, ntaps=ntaps)
     fg = Flowgraph("fir_chain", batch_size=batch_size)
     if source == "live":
-        src = analog.fir_tone_source(fs, taps, frequency=frequency,
-                                     interpret=interpret)
+        src = analog.fir_tone_source(fs, taps, frequency=frequency)
         hd = general.head(n_samples)
         snk = general.null_sink() if sink == "null" else general.vector_sink()
         fg.connect(src, 0, hd, 0)
@@ -45,8 +44,7 @@ def fir_chain(n_samples: int = 10_000_000, fs: float = 1e6, ntaps: int = 128,
         return fg, {"src": src, "fir": src, "head": hd, "sink": snk,
                     "taps": taps}
     src = analog.sig_source(fs, "complex", frequency=frequency)
-    # mxu3 (3-pass bf16 split Toeplitz): 38 vs 54 us/2^21-batch measured vs
-    # the HIGHEST path at ~110 dB accuracy — BASELINE.md config-0 ledger
+    # mxu3: the Toeplitz-matmul FIR at the 3-pass bf16 precision
     fir = filt.fir_filter(taps, method="mxu3")
     hd = general.head(n_samples)
     snk = general.null_sink() if sink == "null" else general.vector_sink()
@@ -60,8 +58,7 @@ def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
                   quad_rate_decim: int = 4, audio_decim: tuple[int, int] = (1, 5),
                   deviation: float = 75_000.0, n_samples: int | None = None,
                   source=None, batch_size: int | None = None, sink: str = "vector",
-                  deemph_tau: float | None = None, fused: bool = False,
-                  precision="split3", interpret: bool = False):
+                  deemph_tau: float | None = None, fused: bool = False):
     """Config #1: wideband FM receiver.
 
     freq_xlating_fir (channel select + decimate to quad rate) ->
@@ -70,12 +67,12 @@ def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
     shape; off by default so the benchmark chain matches config #1].
     Default rates: 1 MS/s -> 250 kS/s quad -> 50 kS/s audio.
 
-    fused=True runs the whole xlate->demod->resampler chain as ONE Pallas
-    mega-kernel on the time-folded-lanes layout
-    (blocks.analog.wbfm_rcv_fused / ops/pallas/wbfm_chain.py) — the
-    round-4 second fused chain. Semantically a drop-in for the staged
-    graph (matches it to f32 accuracy); requires interp=1 resampling and
-    batches in multiples of 64*decim*resamp_decim samples.
+    fused=True runs xlate->demod->resampler as ONE block
+    (blocks.analog.wbfm_rcv_fused / ops/wbfm_chain.py), semantically a
+    drop-in for the staged graph (matches it to float32 accuracy; needs
+    interp-1 resampling). source="live" (with fused=True) makes the test
+    tone generator part of that block (blocks.analog.wbfm_live_source);
+    batch_size is then still counted in input samples.
     """
     quad_rate = fs / quad_rate_decim
     chan_taps = firdes.low_pass(1.0, fs, 100e3, 30e3)
@@ -84,78 +81,42 @@ def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
         raise ValueError("source='live' requires fused=True")
     bsz = batch_size
     if source == "live" and batch_size is not None:
-        # reference stream = audio items for the gen-fused live source
+        # reference stream = audio items for the live source
         bsz = max(batch_size // (quad_rate_decim * audio_decim[1]), 1)
     fg = Flowgraph("wbfm_receiver", batch_size=bsz)
     if source is None:
         source = analog.sig_source(fs, "complex", frequency=0.0)
     if fused:
-        live = source == "live"
-        if live:
-            # The LIVE receiver as ONE gen-fused source kernel (NCO tone
-            # generated in VMEM inside the chain — round-4 config-1
-            # ledger; the two-kernel path is sig_source_folded ->
-            # wbfm_rcv_fused(input_format="folded"), bit-identical).
+        if source == "live":
             fused_blk = analog.wbfm_live_source(
                 chan_taps, center_freq, fs, decim=quad_rate_decim,
                 deviation=deviation, resamp_interp=interp,
-                resamp_decim=decim, frequency=center_freq,
-                precision=precision, interpret=interpret)
+                resamp_decim=decim, frequency=center_freq)
             source = fused_blk
-            snk = (general.vector_sink(dtype="rf32") if sink == "vector"
-                   else general.null_sink(dtype="rf32"))
-            tail = fused_blk
-            deemph = None
-            if deemph_tau is not None:
-                audio_rate = quad_rate * interp / decim
-                deemph = analog.fm_deemph(audio_rate, tau=deemph_tau)
-                fg.connect(fused_blk, 0, deemph, 0)
-                tail = deemph
-            if n_samples is not None:
-                hd = general.head(n_samples, dtype="rf32")
-                fg.connect(tail, 0, hd, 0)
-                fg.connect(hd, 0, snk, 0)
-            else:
-                fg.connect(tail, 0, snk, 0)
-            return fg, {"source": source, "fused": fused_blk,
-                        "xlate": fused_blk, "demod": fused_blk,
-                        "resamp": fused_blk, "deemph": deemph, "sink": snk}
-        fused_blk = analog.wbfm_rcv_fused(
-            chan_taps, center_freq, fs, decim=quad_rate_decim,
-            deviation=deviation, resamp_interp=interp, resamp_decim=decim,
-            precision=precision, interpret=interpret)
-        snk = (general.vector_sink(dtype="rf32") if sink == "vector"
-               else general.null_sink(dtype="rf32"))
-        fg.connect(source, 0, fused_blk, 0)
-        tail = fused_blk
-        deemph = None
-        if deemph_tau is not None:
-            audio_rate = quad_rate * interp / decim
-            deemph = analog.fm_deemph(audio_rate, tau=deemph_tau)
-            fg.connect(fused_blk, 0, deemph, 0)
-            tail = deemph
-        if n_samples is not None:
-            hd = general.head(n_samples, dtype="rf32")
-            fg.connect(tail, 0, hd, 0)
-            fg.connect(hd, 0, snk, 0)
         else:
-            fg.connect(tail, 0, snk, 0)
-        return fg, {"source": source, "fused": fused_blk, "xlate": fused_blk,
-                    "demod": fused_blk, "resamp": fused_blk,
-                    "deemph": deemph, "sink": snk}
-    xlate = filt.freq_xlating_fir(chan_taps, center_freq, fs, decim=quad_rate_decim)
-    demod = analog.quadrature_demod(gain=quad_rate / (2 * np.pi * deviation))
-    resamp = filt.rational_resampler(interp, decim, dtype="rf32")  # audio is real
+            fused_blk = analog.wbfm_rcv_fused(
+                chan_taps, center_freq, fs, decim=quad_rate_decim,
+                deviation=deviation, resamp_interp=interp, resamp_decim=decim)
+            fg.connect(source, 0, fused_blk, 0)
+        blocks = {"source": source, "fused": fused_blk, "xlate": fused_blk,
+                  "demod": fused_blk, "resamp": fused_blk}
+        tail = fused_blk
+    else:
+        xlate = filt.freq_xlating_fir(chan_taps, center_freq, fs, decim=quad_rate_decim)
+        demod = analog.quadrature_demod(gain=quad_rate / (2 * np.pi * deviation))
+        resamp = filt.rational_resampler(interp, decim, dtype="rf32")  # audio is real
+        fg.connect(source, 0, xlate, 0)
+        fg.connect(xlate, 0, demod, 0)
+        fg.connect(demod, 0, resamp, 0)
+        blocks = {"source": source, "xlate": xlate, "demod": demod,
+                  "resamp": resamp}
+        tail = resamp
     snk = general.vector_sink(dtype="rf32") if sink == "vector" else general.null_sink(dtype="rf32")
-    fg.connect(source, 0, xlate, 0)
-    fg.connect(xlate, 0, demod, 0)
-    fg.connect(demod, 0, resamp, 0)
-    tail = resamp
     deemph = None
     if deemph_tau is not None:
         audio_rate = quad_rate * interp / decim
         deemph = analog.fm_deemph(audio_rate, tau=deemph_tau)
-        fg.connect(resamp, 0, deemph, 0)
+        fg.connect(tail, 0, deemph, 0)
         tail = deemph
     if n_samples is not None:
         hd = general.head(n_samples, dtype="rf32")
@@ -163,10 +124,7 @@ def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
         fg.connect(hd, 0, snk, 0)
     else:
         fg.connect(tail, 0, snk, 0)
-    return fg, {
-        "source": source, "xlate": xlate, "demod": demod, "resamp": resamp,
-        "deemph": deemph, "sink": snk,
-    }
+    return fg, {**blocks, "deemph": deemph, "sink": snk}
 
 
 def make_fm_demod_hier(quad_rate: float, deviation: float = 75e3,
@@ -194,31 +152,30 @@ def fm_channelizer(nchans: int = 64, fs: float = 100e6, taps_per_arm: int = 16,
                    audio_decim: int = 8, n_samples: int | None = None,
                    source=None, batch_size: int | None = None, sink: str = "null",
                    deviation_frac: float = 0.3, fused: bool = False,
-                   interpret: bool = False, precision="split3",
-                   audio_taps=None, noise_draws: int = 3):
+                   precision=jax.lax.Precision.HIGHEST, audio_taps=None):
     """Configs #2/#4: wideband channelizer + per-channel FM demod + per-
     channel audio decimating FIR. The headline benchmark chain.
 
     Input: one wideband cf32 stream at fs. Output: (nchans,)-vector rf32
     audio stream at fs / nchans / audio_decim.
 
-    fused=True runs the whole chain as the single mega-kernel block on the
-    planes-rows stream (vector_dsp.fm_channelizer_fused_planes): a cf32
+    fused=True runs the whole chain as one block on the planes-rows stream
+    (vector_dsp.fm_channelizer_fused_planes, ops/fm_chain.py): a cf32
     ``source`` gets a cplx_to_planes adapter; with no source, a
-    noise_planes_source feeds the kernel its native format directly — the
-    flagship/bench configuration (requires a TPU backend unless
-    interpret=True). A source with an (2*nchans,)-vector rf32 output port
-    is used as a planes source as-is. Semantics are identical in both
-    modes: n_samples bounds the OUTPUT stream (audio (nchans,)-vector
+    noise_planes_source feeds the chain its native format directly; a
+    source with an (2*nchans,)-vector rf32 output port is used as a planes
+    source as-is; source="live" is the one-block live flagship
+    (vector_dsp.fm_noise_channelizer_source). Semantics are identical in
+    every mode: n_samples bounds the OUTPUT stream (audio (nchans,)-vector
     items, the head block's units); batch_size is wideband samples.
+    precision is the fused chain's DFT matmul precision.
     """
     chan_rate = fs / nchans
     if fused:
         return _fm_channelizer_fused(nchans, chan_rate, taps_per_arm,
                                      audio_decim, n_samples, source,
                                      batch_size, sink, deviation_frac,
-                                     interpret, precision, audio_taps,
-                                     noise_draws)
+                                     precision, audio_taps)
     fg = Flowgraph("fm_channelizer", batch_size=batch_size)
     if source is None:
         source = analog.noise_source("gaussian", amplitude=0.5)
@@ -247,60 +204,45 @@ def fm_channelizer(nchans: int = 64, fs: float = 100e6, taps_per_arm: int = 16,
 
 def _fm_channelizer_fused(nchans, chan_rate, taps_per_arm, audio_decim,
                           n_samples, source, batch_size, sink,
-                          deviation_frac, interpret, precision,
-                          audio_taps=None, noise_draws: int = 3):
+                          deviation_frac, precision, audio_taps=None):
     if audio_taps is None:
         audio_taps = firdes.low_pass(1.0, chan_rate, 0.4 * chan_rate / audio_decim,
                                      0.1 * chan_rate / audio_decim)
+    gain = 1.0 / (2 * np.pi * deviation_frac)
+    snk = (general.null_sink(dtype="rf32", vlen=(nchans,)) if sink == "null"
+           else general.vector_sink(dtype="rf32", vlen=(nchans,)))
+    adapter = None
     if source == "live":
-        # The gen-fused LIVE flagship: one source kernel generating its own
-        # noise in VMEM (round-4; bit-identical stream to
-        # noise_planes_source(method="pallas", seed=0, amplitude=0.5) ->
-        # the planes block). On non-TPU backends the source auto-selects
-        # the portable position-pure threefry twin (round 5) — same
-        # contract, different bit stream.
-        src = vector_dsp.fm_noise_channelizer_source(
-            nchans, None, audio_taps, audio_decim=audio_decim,
-            gain=1.0 / (2 * np.pi * deviation_frac), amplitude=0.5, seed=0,
-            taps_per_arm=taps_per_arm, precision=precision,
-            interpret=interpret, noise_draws=noise_draws)
+        # the live flagship: position-pure noise (ops/noise.py, seed 0,
+        # amplitude 0.5) generated and channelized in one source block
+        fused_blk = vector_dsp.fm_noise_channelizer_source(
+            nchans, None, audio_taps, audio_decim=audio_decim, gain=gain,
+            amplitude=0.5, seed=0, taps_per_arm=taps_per_arm,
+            precision=precision)
+        source = fused_blk
         bsz = None if batch_size is None else \
             max(batch_size // (nchans * audio_decim), 1)
         fg = Flowgraph("fm_channelizer_live", batch_size=bsz)
-        snk = (general.null_sink(dtype="rf32", vlen=(nchans,))
-               if sink == "null"
-               else general.vector_sink(dtype="rf32", vlen=(nchans,)))
-        if n_samples is not None:
-            hd = general.head(n_samples, dtype="rf32", vlen=(nchans,))
-            fg.connect(src, 0, hd, 0)
-            fg.connect(hd, 0, snk, 0)
-        else:
-            fg.connect(src, 0, snk, 0)
-        return fg, {"source": src, "adapter": None, "fused": src,
-                    "sink": snk, "audio_taps": audio_taps}
-    fused_blk = vector_dsp.fm_channelizer_fused_planes(
-        nchans, None, audio_taps, audio_decim=audio_decim,
-        gain=1.0 / (2 * np.pi * deviation_frac), taps_per_arm=taps_per_arm,
-        interpret=interpret, precision=precision)
-    adapter = None
-    if source is None:
-        source = vector_dsp.noise_planes_source(nchans, amplitude=0.5)
-    planes_native = any(
-        p.item_shape == (2 * nchans,) for p in getattr(source, "outputs", []))
-    # Planes-native source: the graph's reference item is a ROW (= nchans
-    # wideband samples), so scale the requested batch accordingly.
-    bsz = None
-    if batch_size is not None:
-        bsz = (max(batch_size // nchans, 1) if planes_native else batch_size)
-    fg = Flowgraph("fm_channelizer_fused", batch_size=bsz)
-    if planes_native:
-        fg.connect(source, 0, fused_blk, 0)
     else:
-        adapter = vector_dsp.cplx_to_planes(nchans)
-        fg.connect(source, 0, adapter, 0)
-        fg.connect(adapter, 0, fused_blk, 0)
-    snk = (general.null_sink(dtype="rf32", vlen=(nchans,)) if sink == "null"
-           else general.vector_sink(dtype="rf32", vlen=(nchans,)))
+        fused_blk = vector_dsp.fm_channelizer_fused_planes(
+            nchans, None, audio_taps, audio_decim=audio_decim, gain=gain,
+            taps_per_arm=taps_per_arm, precision=precision)
+        if source is None:
+            source = vector_dsp.noise_planes_source(nchans, amplitude=0.5)
+        planes_native = any(
+            p.item_shape == (2 * nchans,) for p in getattr(source, "outputs", []))
+        # Planes-native source: the graph's reference item is a ROW (=
+        # nchans wideband samples), so scale the requested batch.
+        bsz = None
+        if batch_size is not None:
+            bsz = (max(batch_size // nchans, 1) if planes_native else batch_size)
+        fg = Flowgraph("fm_channelizer_fused", batch_size=bsz)
+        if planes_native:
+            fg.connect(source, 0, fused_blk, 0)
+        else:
+            adapter = vector_dsp.cplx_to_planes(nchans)
+            fg.connect(source, 0, adapter, 0)
+            fg.connect(adapter, 0, fused_blk, 0)
     if n_samples is not None:
         hd = general.head(n_samples, dtype="rf32", vlen=(nchans,))
         fg.connect(fused_blk, 0, hd, 0)

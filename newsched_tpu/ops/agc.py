@@ -6,7 +6,7 @@ per sample, output = input * gain, then
 which is the affine recurrence
     g[n+1] = g[n] * (1 - rate*|x[n]|) + rate*reference.
 
-A sequential loop is poison on TPU; ``lax.associative_scan`` over the affine
+A sequential loop is poison on an accelerator; ``lax.associative_scan`` over the affine
 coefficient pairs computes every per-sample gain in log depth. State is the
 single carried gain scalar, so batch splits are exact.
 """

@@ -32,7 +32,7 @@ def quadrature_demod(
     p = jnp.conj(xprev) * x
     # Zero-history convention: demod against a zero sample emits exactly 0
     # (atan2(+-0, +-0) is a signed-zero lottery no two backends agree on;
-    # see BASELINE.md mega-kernel notes — same pinning everywhere).
+    # the same pinning is used in every demod path).
     y = jnp.where((xprev == 0) | (x == 0), jnp.float32(0),
                   jnp.arctan2(jnp.imag(p), jnp.real(p))) * jnp.float32(gain)
     return QuadDemodState(prev=x[-1]), y.astype(jnp.float32)

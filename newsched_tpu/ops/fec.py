@@ -2,7 +2,7 @@
 
 The reference tree carries a minimal/uncertain fec module (SURVEY.md §3.4
 lists blocklib/fec with low confidence; GNU Radio proper ships gr-fec with
-CC encoder/decoder as its core pair). This is the TPU-native take on that
+CC encoder/decoder as its core pair). This is the accelerator-native take on that
 pair:
 
 - **Encoder**: a rate-1/n feedforward convolutional code is a sliding

@@ -1,28 +1,10 @@
 """FFT kernels — analog of the reference's kernel/fft (FFTW wrapper) and the
-fft block (blocklib/fft). On TPU the FFT is XLA-native; these wrappers add
-the block semantics: windowing, fftshift, and vectorized batching.
-
-Also: the Bailey 4-step MXU fast-convolution (round 5, the config-3
-ledger's designed kernel). 16384 = 128 x 128 factorizes fft(seg) into two
-DFT-128 matmul stages + twiddles; for the overlap-save FILTER the spectrum
-product applies in the (k1, k2) matrix domain, the inverse mirrors the
-forward, and — the key algebraic step — the entire middle
-(twiddle -> DFT_128 over k2 -> product with H -> iDFT_128 -> conj-twiddle)
-collapses into ONE k1-batched constant matrix G3:
-
-    G3[k1] = diag(T[k1]) (W2 diag(Hm[k1]) W2^-1) diag(conj(T[k1]))
-
-so ifft(fft(x) * H) = W1^-1 @ (W1 @ A) *batched@* G3 — THREE complex
-matmul stages, ZERO elementwise stages, no transposes, no bit reversal.
-All contractions are 128-wide: the MXU's native tile. Measured (v5e,
-2026-08-21, same-session): 170.0 us vs 313.7 us for XLA's fft+prod+ifft
-pair per 2^21-sample batch (1.84x) at 90.4 dB vs the float64 reference
-(the 3-pass bf16 HIGH tier — the house split3 accuracy class; XLA's f32
-FFT path reads 130.2 dB, kept as fft_method="xla")."""
+fft block (blocklib/fft). The FFT is XLA's own (cuFFT on the GPU); these
+wrappers add the block semantics: windowing, fftshift, and vectorized
+batching."""
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -40,110 +22,3 @@ def fft(
     if shift:
         y = jnp.fft.fftshift(y, axes=-1)
     return y.astype(jnp.complex64)
-
-
-# ---------------------------------------------------------------------------
-# Bailey 4-step MXU fast convolution (module docstring, config-3 ledger)
-
-# Factorization split: 16384 = N1 x N2. Swept same-session (2026-08-21):
-# on pre-framed segments the bare conv stages read (64,256) 159.3 us vs
-# (128,128) 183.5 vs (256,64) 402.5 — but END-TO-END through the
-# zero-copy pipeline (alternating min-of-6) (128,128) wins decisively:
-# 182.9 us vs 245.5 for (64,256); the narrow 60-row segment reshapes and
-# the 4-row head gather cost more than the cheaper W1 stages save.
-# (128, 128) shipped; the split stays parameterized for re-measurement.
-_BAILEY_N1 = 128
-_BAILEY_N2 = 128
-_BAILEY_N = _BAILEY_N1 * _BAILEY_N2
-_bailey_cache: dict = {}
-
-
-def bailey_supported(ntaps: int, fft_size: int | None) -> bool:
-    """The zero-copy pipeline rounds the overlap-save overlap up to whole
-    N2-lane rows, so any ntaps with ceil((ntaps-1)/N2) < N1 fits."""
-    return (fft_size in (None, _BAILEY_N)
-            and 1 < ntaps and -(-(ntaps - 1) // _BAILEY_N2) < _BAILEY_N1)
-
-
-def bailey_plan(taps_np: np.ndarray):
-    """Constants for the zero-copy overlap-save pipeline: the overlap is
-    ROUNDED UP to R0 = ceil((ntaps-1)/128) whole rows, which makes every
-    segment boundary row-aligned — the overlapping frame build then splits
-    into a free reshape plus an R0-row correction matmul (W1 split by
-    columns), and the per-segment discard folds into W1inv (keep rows
-    >= R0). Cached per taps (G3 is 128 batched zgemms, ~0.5 s, float64).
-
-    Returns (W1a (N1, N1-R0), W1b (N1, R0), G3 (N1, N2, N2),
-    W1k (N1-R0, N1), R0) as complex64."""
-    key = taps_np.tobytes()
-    hit = _bailey_cache.get(key)
-    if hit is not None:
-        return hit
-    N1, N2 = _BAILEY_N1, _BAILEY_N2
-    ntaps = int(taps_np.shape[0])
-    R0 = -(-(ntaps - 1) // N2)
-    if not bailey_supported(ntaps, None):
-        raise ValueError(f"bailey fast-conv: overlap {R0} rows must be "
-                         f"< {N1} (ntaps {ntaps} too long for fft_size "
-                         f"{_BAILEY_N})")
-    step_rows = N1 - R0
-    H = np.fft.fft(taps_np.astype(np.complex128), _BAILEY_N)
-    Hm = H.reshape(N2, N1).T  # H[k1 + N1*k2] -> [k1, k2]
-    k1 = np.arange(N1)
-    k2 = np.arange(N2)
-    W1 = np.exp(-2j * np.pi * np.outer(k1, k1) / N1)
-    W2 = np.exp(-2j * np.pi * np.outer(k2, k2) / N2)
-    T = np.exp(-2j * np.pi * np.outer(k1, k2) / _BAILEY_N)
-    # G[k1] = W2 diag(Hm[k1]) W2inv as one batched matmul
-    G = np.matmul(W2[None, :, :] * Hm[:, None, :], np.conj(W2) / N2)
-    G3 = T[:, :, None] * G * np.conj(T)[:, None, :]
-    W1inv = np.conj(W1) / N1
-    plan = (W1[:, :step_rows].astype(np.complex64),
-            W1[:, step_rows:].astype(np.complex64),
-            G3.astype(np.complex64),
-            W1inv[R0:, :].astype(np.complex64), R0)
-    if len(_bailey_cache) > 8:  # bound trace-time memory (~N*N2*8 B per plan)
-        _bailey_cache.clear()
-    _bailey_cache[key] = plan
-    return plan
-
-
-def bailey_filter(xfull: jax.Array, taps_np: np.ndarray, n_lin: int,
-                  precision=jax.lax.Precision.HIGH) -> jax.Array:
-    """Overlap-save FIR via the Bailey 4-step MXU fast-conv, zero-copy:
-    y[k] = sum_t taps[t] xfull[ntaps-1+k-t] for k in [0, n_lin).
-
-    xfull: (>= n_lin + ntaps - 1,) complex64 with the ntaps-1 halo at the
-    front (ops/fir.py streaming convention). The whole pipeline is three
-    batched matmul stages + one tiny R0-row gather — no frame
-    materialization, no FFT primitive, no output re-slice (the discard is
-    W1inv rows). Measured same-session on v5e (1024 taps, 2^21 batch):
-    182.6 us vs 381.2 us for the XLA-FFT overlap-save = 2.09x, 90.3 dB
-    vs scipy float64 (see BASELINE.md config-3 round-5 ledger)."""
-    taps_np = np.asarray(taps_np)
-    W1a, W1b, G3, W1k, R0 = bailey_plan(taps_np)
-    N1, N2 = _BAILEY_N1, _BAILEY_N2
-    ntaps = int(taps_np.shape[0])
-    step_rows = N1 - R0
-    step = step_rows * N2
-    nseg = -(-n_lin // step)
-    # segment 0's first KEPT output (matrix row R0) must be conv output 0,
-    # which lives at xfull position ntaps-1 -> front-pad so that position
-    # R0*N2 - ... aligns: pad = R0*N2 - (ntaps-1) zeros (conv of zeros).
-    pad_front = R0 * N2 - (ntaps - 1)
-    need = nseg * step + _BAILEY_N
-    pad_back = max(need - (int(xfull.shape[0]) + pad_front), 0)
-    xc = jnp.pad(xfull, (pad_front, pad_back))
-    U = xc[: (nseg * step_rows + R0) * N2].reshape(-1, N2)
-    Vmain = U[: nseg * step_rows].reshape(nseg, step_rows, N2)
-    # head rows for segment s = U rows [s*step_rows + step_rows, ... + R0)
-    idx = (jnp.arange(nseg)[:, None] * step_rows + step_rows
-           + jnp.arange(R0)[None, :])
-    Vhead = U[idx]  # (nseg, R0, N2): the ONLY gathered data (1/15 of x)
-    B = (jnp.einsum("kn,snm->skm", jnp.asarray(W1a), Vmain,
-                    precision=precision)
-         + jnp.einsum("kn,snm->skm", jnp.asarray(W1b), Vhead,
-                      precision=precision))
-    C = jnp.einsum("skn,knm->skm", B, jnp.asarray(G3), precision=precision)
-    y = jnp.einsum("nk,skm->snm", jnp.asarray(W1k), C, precision=precision)
-    return y.reshape(-1)[:n_lin].astype(jnp.complex64)

@@ -1,13 +1,13 @@
 """Streaming IIR filter via parallel (associative) scan.
 
 The reference's kernel/filter/iir_filter.h runs a sequential direct-form
-recurrence per sample — unusable on a TPU. Here the recurrence is split:
+recurrence per sample — unusable on an accelerator. Here the recurrence is split:
 
   1. the feed-forward (FIR) part runs through the batched FIR kernel;
   2. the autoregressive part  y[n] = v[n] + sum_k fb[k] y[n-k]  is written in
      companion-matrix state-space form  z[n] = A z[n-1] + e0 v[n]  and solved
      exactly for the whole batch with ``lax.associative_scan`` over affine
-     maps (M, c) — log-depth, VPU/MXU friendly, and bit-reproducible across
+     maps (M, c) — log-depth, vector/matrix-unit friendly, and bit-reproducible across
      batch splits (state carries the last `order` outputs).
 
 Convention matches the reference (gr::kernel::filter::iir_filter):
@@ -58,9 +58,8 @@ def _ar_scan(v: jax.Array, fb: jax.Array, y_hist: jax.Array) -> tuple[jax.Array,
     Ms = jnp.broadcast_to(A, (n, order, order))
     cs = jnp.zeros((n, order), dtype=v.dtype).at[:, 0].set(v)
 
-    # HIGHEST precision is load-bearing: the TPU's default bf16 matmul
-    # collapses the long companion-matrix product chain (measured 2.9 dB
-    # SNR vs scipy on v5e before the override; >100 dB after).
+    # HIGHEST precision is load-bearing: a default-precision (bf16/TF32)
+    # matmul collapses the long companion-matrix product chain.
     hp = jax.lax.Precision.HIGHEST
 
     def combine(l, r):

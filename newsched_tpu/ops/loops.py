@@ -7,15 +7,15 @@ loops complete, SURVEY.md §3.4).
 
 Unlike the FIR/IIR/AGC kernels, these recurrences are *nonlinear* — each
 step's correction passes the previous corrected output through a decision
-function — so there is no associative-scan reformulation. The TPU-native
+function — so there is no associative-scan reformulation. The accelerator-native
 treatment:
 
-- the recurrence runs as one ``lax.scan`` whose body is pure VPU arithmetic
+- the recurrence runs as one ``lax.scan`` whose body is pure vector arithmetic
   (no per-sample host dispatch, no dynamic shapes, no gather except one
   ``dynamic_slice`` in the interpolator);
 - throughput parallelism comes from ``vmap``-ing the whole loop across
   independent channels (the channelizer's per-channel receivers) — the right
-  way for a TPU to amortize an irreducibly serial loop is many loops at once,
+  way for an accelerator to amortize an irreducibly serial loop is many loops at once,
   not a faster single loop;
 - state is an explicit pytree so batch splits are exact (N batches ≡ 1 batch,
   bit-for-bit), same invariant the rest of ops/ holds.

@@ -2,9 +2,9 @@
 
 The reference generates sinusoids with a 32-bit fixed-point phase accumulator
 (kernel math/fxpt, used by analog::sig_source) so phase stays exact over
-unbounded streams. Same design here, TPU-style: phase indices are computed
+unbounded streams. Same design here, accelerator-style: phase indices are computed
 *vectorially* as ``phase0 + n * dphase`` in uint32 (wraparound is the modulo),
-so a whole batch of phases materializes in one VPU op — no sequential
+so a whole batch of phases materializes in one vector op — no sequential
 accumulator loop, and bit-exact continuity across batches of any size.
 """
 

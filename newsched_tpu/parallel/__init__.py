@@ -1,6 +1,6 @@
 """Mesh / sharding / collective helpers.
 
-TPU-native replacement for the reference's entire distribution story
+Replacement for the reference's entire distribution story
 (SURVEY.md §3.6): graph_utils::partition + multi-scheduler -> mesh
 placement; runtime_proxy + buffer_net_zmq ZMQ planes -> XLA collectives
 compiled into the program (`ppermute` halos, `all_to_all` corner turns);

@@ -2,7 +2,7 @@
 ring exchange (SURVEY.md §6): when the sample stream is sharded across
 devices along time, every streaming filter needs the (ntaps-1)-sample tail
 of its left neighbor's segment. One `ppermute` per batch moves all halos
-simultaneously over ICI; device 0 splices in the carry from the previous
+simultaneously over the device interconnect; device 0 splices in the carry from the previous
 batch (its left neighbor in *time* is the last device one batch ago).
 """
 

@@ -10,19 +10,12 @@ from jax.sharding import Mesh
 def make_mesh(n_devices: int | None = None, axis_name: str = "t") -> Mesh:
     """1-D device mesh over the first n devices (default: all). The single
     axis is the time/stream axis; channel sharding reuses it after the
-    corner turn (see parallel/channelizer.py docstring)."""
+    corner turn (see parallel/channelizer.py docstring). The devices of a
+    GPU host are joined all to all, so the mesh follows the algorithm and
+    has one axis."""
     devs = jax.devices()
     if n_devices is not None:
         if n_devices > len(devs):
             raise ValueError(f"requested {n_devices} devices, have {len(devs)}")
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (axis_name,))
-
-
-def make_mesh_2d(shape: tuple[int, int], axis_names=("host", "chip")) -> Mesh:
-    """2-D mesh (host x chip) for multi-host layouts: put the time axis on
-    "chip" (ICI) and channel groups on "host" (DCN) so the per-batch halo
-    exchange rides ICI."""
-    n = shape[0] * shape[1]
-    devs = np.array(jax.devices()[:n]).reshape(shape)
-    return Mesh(devs, axis_names)

@@ -64,10 +64,7 @@ class ShardedFirFilter:
 
             self._spmd = single
         else:
-            try:
-                from jax import shard_map
-            except ImportError:
-                from jax.experimental.shard_map import shard_map
+            from jax import shard_map
 
             Pt = P(axis_name)
             self._spmd = shard_map(spmd, mesh=mesh, in_specs=(Pt, Pt),

@@ -55,7 +55,7 @@ class CompiledFlowgraph:
 
     def init_states(self) -> dict[str, Any]:
         # Blocks may carry a mesh-shaped state variant (e.g. the fused
-        # mega-kernel block's per-device carry rows) via
+        # chain block's per-device carry rows) via
         # ``init_state_sharded`` — the state twin of ``work_sharded``.
         out: dict[str, Any] = {}
         axis = self.time_axis or (self.mesh.axis_names[0]
@@ -324,7 +324,7 @@ def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
     # Mesh lowering: pin each stream edge's value to a time-sharded layout.
     # That single annotation is the whole multi-device story — XLA's SPMD
     # partitioner turns the global tail-concat + conv/matmul kernels into
-    # per-shard compute with ICI halo exchange (the scaling-book recipe:
+    # per-shard compute with halo exchange (the scaling-book recipe:
     # annotate shardings, let the compiler insert collectives).
     constrain = None
     n_shard = 0
@@ -427,7 +427,7 @@ def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
             else:
                 # Explicit-collective lowering hook: under a real mesh, a
                 # block exposing ``work_sharded`` runs its own shard_map
-                # formulation (e.g. the fused mega-kernel per time shard)
+                # formulation (e.g. the fused FM chain per time shard)
                 # instead of relying on the SPMD partitioner — the graph
                 # analog of the reference's per-edge custom buffers.
                 if n_shard > 1 and hasattr(b, "work_sharded"):

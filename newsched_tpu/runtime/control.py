@@ -55,6 +55,7 @@ import time
 from typing import Any
 
 from newsched_tpu.utils.logger import get_logger
+from newsched_tpu.utils.optional import require
 
 log = get_logger("control")
 
@@ -102,7 +103,7 @@ class ControlServer:
         resolve_block(name) -> Block | None. auth_key: shared HMAC key —
         frames failing verification are rejected before deserialization
         (module docstring security note)."""
-        import zmq
+        zmq = require("zmq", "pyzmq", "the control plane")
 
         self.address = address
         self._resolve_runner = resolve_runner
@@ -123,7 +124,7 @@ class ControlServer:
         self._sock.close(0)
 
     def _serve(self) -> None:
-        import zmq
+        zmq = require("zmq", "pyzmq", "the control plane")
 
         poller = zmq.Poller()
         poller.register(self._sock, zmq.POLLIN)
@@ -194,7 +195,7 @@ class RuntimeClient:
 
     def __init__(self, address: str, timeout_ms: int = 5000,
                  auth_key: bytes | None = None):
-        import zmq
+        zmq = require("zmq", "pyzmq", "the control plane")
 
         self._ctx = zmq.Context.instance()
         self._key = auth_key

@@ -14,13 +14,14 @@ ordinary compiled flowgraph in its own execution context:
   plane the reference implements with runtime_proxy messages collapses
   to the in-band EOF framing of the zmq edges plus process exit codes.
 
-On TPU pods this layer is NOT the scaling path — jax.distributed +
+On accelerator clusters this layer is NOT the scaling path — jax.distributed +
 shard_map is (parallel/); this exists for the reference's cross-process
 streaming capability: mixing hosts, piping to non-JAX consumers, etc.
 """
 
 from __future__ import annotations
 
+import socket
 import threading
 
 from newsched_tpu.runtime.graph import Flowgraph
@@ -28,12 +29,13 @@ from newsched_tpu.utils.logger import get_logger
 
 log = get_logger("distributed")
 
-_next_port = [52000]
-
-
 def _alloc_address() -> str:
-    _next_port[0] += 1
-    return f"tcp://127.0.0.1:{_next_port[0]}"
+    """A loopback address on a port the OS reports free: processes that
+    partition graphs at the same time (parallel test workers, several
+    runtimes on one host) do not collide on a fixed port sequence."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return f"tcp://127.0.0.1:{s.getsockname()[1]}"
 
 
 def partition_flowgraph(fg: Flowgraph, groups: dict[str, list],

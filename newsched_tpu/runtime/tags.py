@@ -5,7 +5,7 @@ get_tags_in_range + executor propagation per tag_propagation_policy_t)
 attaches {offset, pmtf map} tags to ring-buffer positions and remaps them
 as the executor crosses rate changes.
 
-TPU-native design: tags travel as a fixed-capacity, mask-validated
+Compile-time design: tags travel as a fixed-capacity, mask-validated
 TagBatch pytree alongside each batch — SPMD-friendly static shapes, no
 dynamic lists on device:
 

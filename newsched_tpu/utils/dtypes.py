@@ -1,6 +1,6 @@
 """Port/stream dtype registry.
 
-The TPU-native analog of the reference's parameter-type registry
+The compile-time analog of the reference's parameter-type registry
 (runtime/include/gnuradio/parameter_types.h): a small table mapping the
 framework's stream type names (the reference's ``cf32``/``rf32``/``ri16``…
 spellings) to numpy/jax dtypes, with item sizes for host IO and type checking

@@ -1,6 +1,6 @@
 """Runtime preferences — reference prefs singleton (runtime/lib/prefs.cc):
-a YAML config file layering defaults for log level, default batch size,
-FIR method selection, and pallas gating.
+a YAML config file layering defaults for log level, default batch size and
+FIR method selection. PyYAML is imported only when a config file exists.
 
 Search order: $NEWSCHED_TPU_CONF, ./newsched_tpu.conf.yml,
 ~/.config/newsched_tpu/conf.yml. Env vars NEWSCHED_TPU_<KEY> override.
@@ -11,13 +11,10 @@ from __future__ import annotations
 import os
 from typing import Any
 
-import yaml
-
 _DEFAULTS: dict[str, Any] = {
     "log_level": "WARNING",
     "default_batch_size": 1 << 16,
     "fir_method": "auto",
-    "use_pallas": False,
 }
 
 _cache: dict[str, Any] | None = None
@@ -35,6 +32,12 @@ def _load() -> dict[str, Any]:
     ]
     for p in paths:
         if p and os.path.exists(p):
+            try:
+                import yaml
+            except ImportError as e:
+                raise ImportError(
+                    f"reading the config file {p} needs PyYAML "
+                    "(pip install pyyaml)") from e
             with open(p) as fh:
                 loaded = yaml.safe_load(fh) or {}
             conf.update(loaded)

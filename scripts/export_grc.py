@@ -88,12 +88,10 @@ EXAMPLE_ARGS: dict[str, tuple] = {
     "vector_quad_demod": (8,),
     "vector_fir": (8, _TAPS),
     "channel_select": (8, 0),
-    "fm_channelizer_fused": (8, None, _TAPS),
     "fm_channelizer_fused_planes": (64, None, _TAPS),
     "fm_noise_channelizer_source": (64, None, _TAPS),
     "wbfm_rcv_fused": (_TAPS, 100e3, 1e6),
     "wbfm_live_source": (_TAPS, 100e3, 1e6),
-    "sig_source_folded": (1e6,),
     "fir_tone_source": (1e6, _TAPS),
     "cplx_to_planes": (8,),
     "noise_planes_source": (8,),

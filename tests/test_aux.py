@@ -409,7 +409,7 @@ def test_yml_block_library():
 def test_alsa_blocks_gate_cleanly_without_hardware():
     """Live ALSA blocks (reference blocklib/audio) construct anywhere and
     fail with a clear actionable error at start() on hosts without an
-    ALSA stack (TPU pods); with libasound present they drive the PCM via
+    ALSA stack (headless accelerator hosts); with libasound present they drive the PCM via
     ctypes (blocks/audio.py _alsa_pcm)."""
     from newsched_tpu.blocks import audio
 

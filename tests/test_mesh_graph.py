@@ -148,17 +148,17 @@ def _run_fused_graph(mesh, rows, nchans, n_out_items, batch_rows):
     fg, blk = models.fm_channelizer(
         nchans=nchans, taps_per_arm=8, audio_decim=4, n_samples=n_out_items,
         source=src, batch_size=batch_rows * nchans, sink="vector",
-        fused=True, interpret=True, audio_taps=ataps)
+        fused=True, audio_taps=ataps)
     fg.run(mesh=mesh)
     return blk["sink"].data()
 
 
 @pytest.mark.parametrize("n_dev", [4, 8])
 def test_fused_model_graph_mesh_matches_single(n_dev):
-    """Round 3: the FUSED flagship model compiles sharded THROUGH THE GRAPH
-    (compile.py work_sharded hook -> per-time-shard mega-kernel with
-    ppermute halo + warm-up recompute) and matches the single-device fused
-    run across multiple batches."""
+    """The FUSED flagship model compiles sharded THROUGH THE GRAPH
+    (compile.py work_sharded hook -> the chain per time shard after a
+    ppermute halo of input rows) and matches the single-device fused run
+    across multiple batches."""
     from newsched_tpu.parallel.channelizer import planes_rows
 
     M, decim = 16, 4
@@ -177,19 +177,16 @@ def _run_live_fm(mesh, nchans, decim, nout_items, n_batches):
     fg, blk = models.fm_channelizer(
         nchans=nchans, taps_per_arm=4, audio_decim=decim,
         n_samples=nout_items * n_batches, source="live",
-        batch_size=nout_items * decim * nchans, sink="vector", fused=True,
-        interpret=True)
+        batch_size=nout_items * decim * nchans, sink="vector", fused=True)
     fg.run(mesh=mesh)
     return blk["sink"].data()
 
 
 @pytest.mark.parametrize("n_dev", [4, 8])
 def test_live_fm_source_graph_mesh_matches_single(n_dev):
-    """VERDICT r4 item #1: the LIVE gen-fused flagship shards. On the CPU
-    mesh the source auto-selects the portable position-pure generator
-    (ops/pallas/noise.py pure_rows — same (seed, absolute group) contract
-    as the hardware PRNG); each device generates its own group range and
-    regenerates halo + junction state, zero collectives. Sharded must
+    """The LIVE flagship shards: the position-pure noise stream
+    (ops/noise.py pure_rows) lets each device generate its own group range
+    and regenerate its input history, zero collectives. Sharded must
     equal unsharded across MULTIPLE batches (group counter advance +
     first-batch pre-stream masking both covered)."""
     M, decim = 16, 2
@@ -208,7 +205,7 @@ def test_live_fm_source_vs_float64_golden_sharded():
 
     from newsched_tpu.blocks import vector_dsp
     from newsched_tpu.ops import pfb as pfb_ops
-    from newsched_tpu.ops.pallas.noise import pure_rows
+    from newsched_tpu.ops.noise import pure_rows
     from scipy import signal as sp_sig
 
     M, decim, nout = 16, 2, 512
@@ -251,16 +248,16 @@ def _run_live_wbfm(mesh, n_samples, batch):
     fg, blk = models.wbfm_receiver(
         fs=1e6, center_freq=0.21e6, quad_rate_decim=4, audio_decim=(1, 5),
         n_samples=n_samples, source="live", batch_size=batch, sink="vector",
-        fused=True, interpret=True)
+        fused=True)
     fg.run(mesh=mesh)
     return blk["sink"].data()
 
 
 def test_live_wbfm_source_graph_mesh_matches_single():
     """The wbfm twin of the live sharding: every window of the live chain
-    is a pure function of the phase counter, so each device generates its
-    own absolute sample range (phase offset) and regenerates the junction
-    region — zero collectives. Sharded == unsharded across 2 batches."""
+    is a pure function of the phase counter, so XLA's SPMD partitioner
+    splits the generation by time. Sharded == unsharded across 2
+    batches."""
     batch = 8 * 64 * 160 * 20
     n_samples = 2 * batch // 20
     ref = _run_live_wbfm(None, n_samples, batch)
@@ -269,40 +266,37 @@ def test_live_wbfm_source_graph_mesh_matches_single():
     assert snr_db(ref, got) > 100
 
 
-def test_unshardable_live_sources_raise_framework_errors():
-    """VERDICT r4 weak #3: meshing a live block that cannot shard raises a
-    clear framework error, never a raw Mosaic/SPMD crash."""
-    from newsched_tpu.blocks import analog
-
-    mesh = make_mesh(8)
-    src = analog.sig_source_folded(1e6, frequency=1000.0, interpret=True)
-    hd = general.head(1024, dtype="rf32", vlen=(128,))
-    snk = general.vector_sink(dtype="rf32", vlen=(128,))
-    fg = Flowgraph(batch_size=1024)
-    fg.connect(src, 0, hd, 0)
-    fg.connect(hd, 0, snk, 0)
-    with pytest.raises(ValueError, match="does not shard"):
-        fg.run(mesh=mesh)
-
-
-def test_live_fm_sharded_geometry_errors():
-    """Bad mesh/batch combinations die at compile time with actionable
-    messages (not inside the kernel)."""
+def test_live_fm_source_rejects_unsplittable_mesh():
+    """A batch whose noise groups do not split over the mesh raises a
+    framework error naming the block, not an XLA error."""
     from newsched_tpu.blocks import vector_dsp
-    from newsched_tpu.ops import firdes
 
     ataps = firdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=17)
     src = vector_dsp.fm_noise_channelizer_source(
-        16, None, ataps, audio_decim=2, taps_per_arm=4, interpret=True)
-    mesh = make_mesh(8)
+        16, None, ataps, audio_decim=2, taps_per_arm=4)
+    snk = general.vector_sink(dtype="rf32", vlen=(16,))
+    fg = Flowgraph(batch_size=96)  # 192 rows = 3 groups over 8 devices
+    fg.connect(src, 0, snk, 0)
+    with pytest.raises(ValueError, match="do not split"):
+        fg.run(mesh=make_mesh(8), total_items=96)
+
+
+def test_live_fm_sharded_geometry_errors():
+    """Batches that are not whole noise groups die at compile time with
+    an actionable message."""
+    from newsched_tpu.blocks import vector_dsp
+
+    ataps = firdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=17)
+    src = vector_dsp.fm_noise_channelizer_source(
+        16, None, ataps, audio_decim=2, taps_per_arm=4)
     with pytest.raises(ValueError, match="multiple"):
-        src.init_state_sharded(0, 36, mesh, "t")  # 72 rows: 9/dev, not 64x
+        src.init_state(0, 36)  # 72 rows: not whole 64-row groups
 
 
 def test_noise_planes_source_pure_batch_invariant_and_shards():
-    """Round 5: noise_planes_source(method='pure') — the position-pure
-    portable stream: batch-size-invariant (unlike threefry key-chaining)
-    and partitions cleanly under fg.run(mesh=...)."""
+    """noise_planes_source(method='pure') — the position-pure stream:
+    batch-size-invariant (unlike threefry key-chaining) and partitions
+    cleanly under fg.run(mesh=...)."""
     from newsched_tpu.blocks import vector_dsp
 
     M = 16

@@ -101,9 +101,9 @@ def test_config2_channelizer_model_runs():
 
 
 def test_noise_planes_source_method_selection_cpu():
-    """CPU backend: method='auto' falls back to threefry (works, gaussian
-    stats); method='pallas' raises with a clear error (Mosaic PRNG has no
-    CPU lowering)."""
+    """The default threefry stream has the requested amplitude; the
+    position-pure stream needs whole 64-row groups; unknown methods are
+    refused."""
     from newsched_tpu.blocks import general, vector_dsp
     from newsched_tpu.runtime.graph import Flowgraph
 
@@ -118,20 +118,19 @@ def test_noise_planes_source_method_selection_cpu():
     assert r.shape == (1024, 32)
     assert abs(r.std() - 2.0) < 0.05
 
-    with pytest.raises(ValueError, match="TPU backend"):
-        bad = vector_dsp.noise_planes_source(16, method="pallas")
-        bad.init_state(0, 256)
+    with pytest.raises(ValueError, match="threefry/pure"):
+        vector_dsp.noise_planes_source(16, method="pallas")
     with pytest.raises(ValueError, match="multiples of"):
-        bad = vector_dsp.noise_planes_source(16, method="pallas")
+        bad = vector_dsp.noise_planes_source(16, method="pure")
         bad.init_state(0, 100)  # not a GROUP_ROWS multiple
 
 
 def test_fir_chain_live_matches_staged_and_shards():
-    """Round 5: config #0 as one gen-fused kernel (fir_tone_source — NCO
-    tone generated in VMEM + banded-Toeplitz FIR, no carries at all).
-    Live == staged graph to f32 accuracy; sharded == unsharded
-    bit-identically (pure phase arithmetic, zero collectives); golden
-    float64 gate on the fxpt tone ladder."""
+    """Config #0 as one live source block (fir_tone_source: NCO tone
+    generated per batch, its FIR lookback regenerated from the phase).
+    Live == staged graph to f32 accuracy; sharded == unsharded; batch
+    size does not change the stream; golden float64 gate on the fxpt
+    tone ladder."""
     from newsched_tpu.ops import nco
     from newsched_tpu.parallel import make_mesh
 
@@ -141,8 +140,7 @@ def test_fir_chain_live_matches_staged_and_shards():
     def run(src_kind, mesh=None, batch=8192):
         fg, b = fir_chain(n_samples=n, fs=fs, ntaps=ntaps,
                                  frequency=freq, batch_size=batch,
-                                 sink="vector", source=src_kind,
-                                 interpret=True)
+                                 sink="vector", source=src_kind)
         fg.run(mesh=mesh)
         return np.asarray(b["sink"].data()), b["taps"]
 

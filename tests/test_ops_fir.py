@@ -111,11 +111,9 @@ def test_streaming_equals_offline_long():
     assert snr_db(ref, y) > 100
 
 
-def test_fft_filter_bailey_mxu_matches_scipy():
-    """Round 5: the Bailey 4-step matmul fast-conv (ops/fftops.py — the
-    config-3 ledger's designed MXU FFT) as a streaming fft_filter engine.
-    Pure XLA, so the math is testable on CPU; the >60 dB config-3 gate
-    holds with ~30 dB margin (HIGH = 3-pass bf16 tier on TPU; f32 here)."""
+def test_fft_filter_1024_taps_matches_scipy():
+    """Config #3's shape: a 1024-tap overlap-save FIR streamed over three
+    batches equals scipy on the whole stream."""
     rng = np.random.default_rng(3)
     ntaps = 1024
     taps = np.asarray(firdes.low_pass(1.0, 1.0, 0.1, 0.03, ntaps=ntaps),
@@ -128,14 +126,14 @@ def test_fft_filter_bailey_mxu_matches_scipy():
     out = []
     for i in range(3):
         s, y = fir_ops.fir_filter(taps, s, jnp.asarray(x[i * B:(i + 1) * B]),
-                                  method="fft", fft_method="mxu")
+                                  method="fft")
         out.append(np.asarray(y))
     y = np.concatenate(out)
     ref = sig.lfilter(taps.astype(np.float64), [1.0], x.astype(np.complex128))
-    assert snr_db(ref, y) > 90  # f32 einsum on CPU; bf16-HIGH on TPU ~90 dB
+    assert snr_db(ref, y) > 100
 
 
-def test_fft_filter_bailey_decim_and_errors():
+def test_fft_filter_decim_complex_and_real_streams():
     rng = np.random.default_rng(4)
     taps = np.asarray(firdes.low_pass(1.0, 1.0, 0.05, 0.02, ntaps=513),
                       np.float32)
@@ -143,27 +141,23 @@ def test_fft_filter_bailey_decim_and_errors():
     x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
          ).astype(np.complex64)
     s = fir_ops.fir_init_state(513, dtype=jnp.complex64)
-    _, y = fir_ops.fir_filter(taps, s, jnp.asarray(x), decim=4,
-                              method="fft", fft_method="mxu")
+    _, y = fir_ops.fir_filter(taps, s, jnp.asarray(x), decim=4, method="fft")
     ref = sig.lfilter(taps.astype(np.float64), [1.0],
                       x.astype(np.complex128))[::4]
-    assert snr_db(ref, y) > 90
-    # real stream: mxu is the complex fast-conv — clear error
+    assert snr_db(ref, y) > 100
+    # a real stream takes the rfft pair
     sr = fir_ops.fir_init_state(513, dtype=jnp.float32)
-    with pytest.raises(ValueError, match="complex"):
-        fir_ops.fir_filter(taps, sr, jnp.asarray(np.real(x)), method="fft",
-                           fft_method="mxu")
-    # unsupported fft_size
-    with pytest.raises(ValueError, match="fft_size"):
-        fir_ops.fir_filter(taps, s, jnp.asarray(x), method="fft",
-                           fft_method="mxu", fft_size=4096)
+    _, yr = fir_ops.fir_filter(taps, sr, jnp.asarray(np.real(x)), decim=4,
+                               method="fft")
+    assert yr.dtype == jnp.float32
+    assert snr_db(np.real(ref), yr) > 100
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_fft_filter_bailey_streaming_property(seed):
-    """Property: random taps/decim/batch splits through the Bailey
-    fast-conv equal scipy on the concatenated stream (streaming state
-    carried across uneven batch boundaries)."""
+def test_fft_filter_streaming_property(seed):
+    """Property: random taps/decim/batch splits through the overlap-save
+    path equal scipy on the concatenated stream (streaming state carried
+    across uneven batch boundaries)."""
     rng = np.random.default_rng(seed + 10)
     ntaps = int(rng.integers(400, 2000))
     decim = int(rng.choice([1, 2, 4]))
@@ -179,11 +173,34 @@ def test_fft_filter_bailey_streaming_property(seed):
     out, i0 = [], 0
     for b in splits:
         s, y = fir_ops.fir_filter(taps, s, jnp.asarray(x[i0:i0 + b]),
-                                  decim=decim, method="fft",
-                                  fft_method="mxu")
+                                  decim=decim, method="fft")
         out.append(np.asarray(y))
         i0 += b
     y = np.concatenate(out)
     ref = sig.lfilter(taps.astype(np.float64), [1.0],
                       x.astype(np.complex128))[::decim]
-    assert snr_db(ref[: len(y)], y) > 85
+    assert snr_db(ref[: len(y)], y) > 100
+
+
+@pytest.mark.parametrize("ntaps,n_lin,expect", [
+    (1024, 1 << 21, 8192),   # 8x the taps
+    (100, 1 << 21, 1024),    # powers of two
+    (1024, 3000, 4096),      # capped by the batch's own convolution length
+])
+def test_fft_size_rule(ntaps, n_lin, expect):
+    """The automatic segment is the power of two >= 8x the taps, never
+    longer than one batch's linear convolution needs."""
+    calls = {}
+    orig = fir_ops._frame_with_halo
+
+    def spy(xfull, nseg, step, fft_size):
+        calls["fft_size"] = fft_size
+        return orig(xfull, nseg, step, fft_size)
+
+    fir_ops._frame_with_halo = spy
+    try:
+        fir_ops.fft_filter_full(jnp.zeros((n_lin + ntaps - 1,), jnp.complex64),
+                                jnp.ones((ntaps,), jnp.float32), n_lin)
+    finally:
+        fir_ops._frame_with_halo = orig
+    assert calls["fft_size"] == expect

@@ -116,8 +116,7 @@ def test_pfb_random_config_matches_numpy(log2_m, taps_per_arm, n_batches, seed):
     outs = []
     for k in range(n_batches):
         st_, Y = pfb_ops.pfb_channelize(jnp.asarray(arm), st_,
-                                        jnp.asarray(x[k * B:(k + 1) * B]),
-                                        method="sum")
+                                        jnp.asarray(x[k * B:(k + 1) * B]))
         outs.append(np.asarray(Y))
     got = np.concatenate(outs, axis=0)
 

@@ -1,5 +1,5 @@
 """Sharded pipeline tests on the simulated 8-device CPU mesh (SURVEY.md §5:
-the TPU analog of the reference's localhost multi-process distributed tests).
+the analog of the reference's localhost multi-process distributed tests).
 
 The decisive check: the time-sharded + corner-turned channelizer+demod
 pipeline produces the SAME samples as the single-device flowgraph, across
@@ -30,7 +30,7 @@ def _reference_chain(x, nchans, taps, audio_taps, audio_decim, gain, batches):
         xprev = jnp.concatenate([prev[None], Y[:-1]], axis=0)
         p = jnp.conj(xprev) * Y
         # zero-history convention: demod emits exactly 0 (matches
-        # parallel/channelizer.py and ops/pallas/fm_chain.py)
+        # parallel/channelizer.py and ops/fm_chain.py)
         aud = jnp.where((xprev == 0) | (Y == 0), jnp.float32(0),
                         jnp.arctan2(jnp.imag(p), jnp.real(p))) * gain
         prev = Y[-1]
@@ -173,7 +173,7 @@ def test_sharded_channelizer_256ch_config4():
     assert snr_db(ref, got) > 100
 
 
-# ---- planes-rows mega-kernel sharding (round 3) ------------------------
+# ---- planes-rows chain sharding -----------------------------------------
 
 def _planes_ref(x, M, taps, audio_taps, decim, gain, batches):
     return _reference_chain(x, M, taps, audio_taps, decim, gain, batches)
@@ -181,9 +181,9 @@ def _planes_ref(x, M, taps, audio_taps, decim, gain, batches):
 
 @pytest.mark.parametrize("n_dev", [1, 4, 8])
 def test_planes_megakernel_sharded_matches_unsharded(n_dev):
-    """The fused mega-kernel per time shard (warm-up recompute + input-rows
-    ppermute halo): exact vs the unsharded staged reference across batches,
-    for any mesh size (VERDICT r2 item #2)."""
+    """The fused chain per time shard (input-rows ppermute halo, lead-in
+    recomputed from it): exact vs the unsharded staged reference across
+    batches, for any mesh size."""
     from newsched_tpu.parallel.channelizer import planes_rows
 
     M, L, decim, A = 16, 8, 4, 33
@@ -191,8 +191,7 @@ def test_planes_megakernel_sharded_matches_unsharded(n_dev):
     audio_taps = firdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=A)
     mesh = make_mesh(n_dev)
     ch = ShardedFMChannelizer(mesh, M, taps, audio_taps, audio_decim=decim,
-                              demod_gain=1.1, chain_method="megakernel",
-                              interpret=True)
+                              demod_gain=1.1)
     n_rows = n_dev * 128
     B = n_rows * M
     batches = 3
@@ -212,16 +211,18 @@ def test_planes_megakernel_sharded_matches_unsharded(n_dev):
     assert snr_db(ref, got) > 100
 
 
-def test_planes_megakernel_complex_step_raises():
+def test_planes_rejects_batches_shorter_than_the_history():
+    """One halo exchange covers one neighbor: per-device rows below the
+    chain's history are refused with a framework error."""
     M, L = 16, 8
     taps = firdes.prototype_channelizer_taps(M, L)
     audio_taps = firdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=33)
     ch = ShardedFMChannelizer(make_mesh(4), M, taps, audio_taps,
-                              audio_decim=4, chain_method="megakernel",
-                              interpret=True)
-    with pytest.raises(NotImplementedError, match="step_planes"):
-        ch.step(jnp.zeros((ch.batch_multiple() * 8,), jnp.complex64),
-                ch.init_state())
+                              audio_decim=4)
+    with pytest.raises(ValueError, match="history"):
+        ch.init_state_planes(4 * 16)  # 16 rows/device < 8-1+1+32 = 40
+    with pytest.raises(ValueError, match="multiple"):
+        ch.init_state_planes(4 * 64 + 4)
 
 
 def test_planes_megakernel_output_time_sharded():
@@ -231,8 +232,7 @@ def test_planes_megakernel_output_time_sharded():
     taps = firdes.prototype_channelizer_taps(M, L)
     audio_taps = firdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=33)
     mesh = make_mesh(8)
-    ch = ShardedFMChannelizer(mesh, M, taps, audio_taps, audio_decim=decim,
-                              chain_method="megakernel", interpret=True)
+    ch = ShardedFMChannelizer(mesh, M, taps, audio_taps, audio_decim=decim)
     n_rows = 8 * 128
     x = _rand_complex(n_rows * M, seed=5)
     xb = jax.device_put(jnp.asarray(planes_rows(x, M)),
@@ -244,8 +244,8 @@ def test_planes_megakernel_output_time_sharded():
 
 
 def test_planes_megakernel_256ch_config4():
-    """BASELINE config #4 at 256 channels THROUGH THE MEGA-KERNEL on the
-    8-device sim mesh (VERDICT r2 item #2 'done when')."""
+    """BASELINE config #4 at 256 channels through the fused chain on the
+    8-device sim mesh."""
     from newsched_tpu.parallel.channelizer import planes_rows
 
     M, L, decim, A = 256, 4, 4, 17
@@ -253,8 +253,7 @@ def test_planes_megakernel_256ch_config4():
     audio_taps = firdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=A)
     mesh = make_mesh(8)
     ch = ShardedFMChannelizer(mesh, M, taps, audio_taps, audio_decim=decim,
-                              demod_gain=0.7, chain_method="megakernel",
-                              interpret=True)
+                              demod_gain=0.7)
     n_rows = 8 * 64
     B = n_rows * M
     x = _rand_complex(B * 2, seed=44)

@@ -204,7 +204,7 @@ def test_tag_capacity_limit_drops_counted():
 
 
 def test_tags_through_fused_megakernel_graph():
-    """Stream tags traverse the fused mega-kernel block with the exact
+    """Stream tags traverse the fused chain block with the exact
     rational remap (rate 1/(M*decim) through adapter + fused stages) —
     the generic compiler tag plane needs no block cooperation."""
     import numpy as np
@@ -220,7 +220,7 @@ def test_tags_through_fused_megakernel_graph():
     src = general.vector_source(x, tags=[(0, "start"), (B // 2, "mid", 7.5)])
     fg, bl = models.fm_channelizer(nchans=M, taps_per_arm=8, audio_decim=decim,
                                    n_samples=n_aud, source=src, batch_size=2048,
-                                   sink="vector", fused=True, interpret=True)
+                                   sink="vector", fused=True)
     fg.run()
     tags = bl["sink"].tags()
     assert [(t.offset, t.key) for t in tags] == \

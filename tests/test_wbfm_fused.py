@@ -1,7 +1,7 @@
-"""The fused wbfm receive chain (ops/pallas/wbfm_chain.py, round 4):
-interpret-mode kernel vs a float64 staged-semantics golden, the flowgraph
-twin test vs the staged blocks, and the sharded graph path on the CPU sim
-mesh. TPU-tier compiled-mode tests live in tests_tpu/test_on_tpu.py."""
+"""The one-block wbfm receive chain (ops/wbfm_chain.py): the chain vs a
+float64 staged-semantics golden, the flowgraph twin test vs the staged
+blocks, the sharded graph path on the CPU sim mesh, and the
+recompile-fence retune. Compiled GPU runs are in tests_gpu/."""
 
 import numpy as np
 import pytest
@@ -32,7 +32,8 @@ def golden_chain(x, c, dphase, D, rt, Rd, gain):
 def snr_db(ref, test):
     ref = np.asarray(ref, np.float64).ravel()
     err = ref - np.asarray(test, np.float64).ravel()
-    return 10 * np.log10(np.mean(ref ** 2) / np.mean(err ** 2))
+    e = np.mean(err ** 2)
+    return np.inf if e == 0 else 10 * np.log10(np.mean(ref ** 2) / e)
 
 
 def _small_cfg():
@@ -43,31 +44,36 @@ def _small_cfg():
     return c, rt, dphase, D, Rd, 0.7
 
 
+def _stream(x, plan, split):
+    """Run wbfm_chain over x in batches of the given sizes, carrying the
+    input history between them."""
+    from newsched_tpu.ops.wbfm_chain import wbfm_chain
+
+    hist = jnp.zeros((plan.history,), jnp.complex64)
+    outs, pos = [], 0
+    for k in split:
+        ext = jnp.concatenate([hist, jnp.asarray(x[pos:pos + k])])
+        outs.append(np.asarray(wbfm_chain(ext, plan)))
+        hist = ext[-plan.history:]
+        pos += k
+    return np.concatenate(outs)
+
+
 def test_wbfm_kernel_streaming_matches_golden_interpret():
-    """3 streamed batches through the bare kernel (junction recompute +
-    carry) match the infinite-stream float64 golden everywhere."""
-    from newsched_tpu.ops.pallas.wbfm_chain import (S, WbfmChainPlan,
-                                                    fold_planes,
-                                                    unfold_audio,
-                                                    wbfm_chain_step)
+    """3 streamed batches through the chain (history-only state) match
+    the infinite-stream float64 golden everywhere."""
+    from newsched_tpu.ops.wbfm_chain import WbfmChainPlan
 
     c, rt, dphase, D, Rd, gain = _small_cfg()
-    plan = WbfmChainPlan(c, dphase, D, rt, Rd, gain,
-                         precision=jax.lax.Precision.HIGHEST)
+    plan = WbfmChainPlan(c, dphase, D, rt, Rd, gain)
     rng = np.random.default_rng(0)
-    n = S * 160  # R=160 = one tile of 8*D*Rd rows
-    nb = 3
-    x = (rng.standard_normal(nb * n)
-         + 1j * rng.standard_normal(nb * n)).astype(np.complex64)
+    n = 64 * 160
+    x = (rng.standard_normal(3 * n)
+         + 1j * rng.standard_normal(3 * n)).astype(np.complex64)
     ref = golden_chain(x, c, dphase, D, rt, Rd, gain)
-    carry = jnp.zeros((plan.B8, 2 * S), jnp.float32)
-    outs = []
-    for b in range(nb):
-        xp = fold_planes(jnp.asarray(x[b * n:(b + 1) * n]))
-        aud, carry = wbfm_chain_step(xp, carry, plan, interpret=True)
-        outs.append(np.asarray(unfold_audio(aud)))
-    got = np.concatenate(outs)
-    assert snr_db(ref[: len(got)], got) > 100
+    got = _stream(x, plan, [n] * 3)
+    assert got.shape == ref.shape
+    assert snr_db(ref, got) > 100
 
 
 def test_wbfm_fused_model_matches_staged_graph():
@@ -84,8 +90,7 @@ def test_wbfm_fused_model_matches_staged_graph():
         src = general.vector_source(x)
         fg, parts = models.wbfm_receiver(
             fs=fs, center_freq=200e3, quad_rate_decim=4, audio_decim=(1, 5),
-            deviation=75e3, source=src, batch_size=40960, fused=fused,
-            interpret=fused)
+            deviation=75e3, source=src, batch_size=40960, fused=fused)
         fg.run()
         return parts["sink"].data()
 
@@ -95,9 +100,9 @@ def test_wbfm_fused_model_matches_staged_graph():
 
 
 def test_wbfm_fused_sharded_graph_matches_unsharded():
-    """fg.run(mesh=...) lowers the fused wbfm block through its
-    work_sharded hook (per-device fold + ppermute junction block) and
-    matches the unsharded run exactly (warm recompute is exact)."""
+    """fg.run(mesh=...) shards the one-block wbfm chain through XLA's SPMD
+    partitioner (its state is raw input samples, like any FIR) and
+    matches the unsharded run."""
     from newsched_tpu.blocks import analog
     from newsched_tpu.parallel.mesh import make_mesh
     from newsched_tpu.runtime.graph import Flowgraph
@@ -115,7 +120,7 @@ def test_wbfm_fused_sharded_graph_matches_unsharded():
         src = general.vector_source(x)
         blk = analog.wbfm_rcv_fused(
             c, center_freq=0.21 * 1e6, fs=1e6, decim=D, deviation=75e3,
-            resamp_decim=Rd, resamp_taps=rt, interpret=True)
+            resamp_decim=Rd, resamp_taps=rt)
         hd = general.head(n // (D * Rd), dtype="rf32")
         snk = general.vector_sink(dtype="rf32")
         fg = Flowgraph(batch_size=n)
@@ -134,62 +139,40 @@ def test_wbfm_fused_sharded_graph_matches_unsharded():
 def test_wbfm_fused_rejects_bad_configs():
     from newsched_tpu.blocks import analog
 
-    with pytest.raises(NotImplementedError, match="interp-1"):
+    with pytest.raises(NotImplementedError, match="resamp_interp=1"):
         analog.wbfm_rcv_fused(np.ones(9), 0.0, 1e6, resamp_interp=2)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_wbfm_fused_batch_split_property(seed):
-    """Property tier (round-3 discipline extended to the round-4 fused
-    chain): the folded-lanes kernel's junction recompute makes outputs
-    EXACTLY the infinite-stream values, so random batch partitions of the
-    same stream produce identical audio."""
-    from newsched_tpu.ops.pallas.wbfm_chain import (S, WbfmChainPlan,
-                                                    fold_planes,
-                                                    unfold_audio,
-                                                    wbfm_chain_step)
+    """The chain's state is its input history, so random batch partitions
+    of the same stream produce the same audio."""
+    from newsched_tpu.ops.wbfm_chain import WbfmChainPlan
 
     c, rt, dphase, D, Rd, gain = _small_cfg()
-    plan = WbfmChainPlan(c, dphase, D, rt, Rd, gain,
-                         precision=jax.lax.Precision.HIGHEST)
+    plan = WbfmChainPlan(c, dphase, D, rt, Rd, gain)
     rng = np.random.default_rng(100 + seed)
-    unit = S * 8 * D * Rd  # smallest legal batch granule (fold * tile step)
+    unit = D * Rd * 16
     n_units = 12
     x = (rng.standard_normal(n_units * unit)
          + 1j * rng.standard_normal(n_units * unit)).astype(np.complex64)
-
-    def run(split):
-        carry = jnp.zeros((plan.B8, 2 * S), jnp.float32)
-        outs, pos = [], 0
-        for k in split:
-            xp = fold_planes(jnp.asarray(x[pos: pos + k * unit]))
-            aud, carry = wbfm_chain_step(xp, carry, plan, interpret=True)
-            outs.append(np.asarray(unfold_audio(aud)))
-            pos += k * unit
-        return np.concatenate(outs)
-
-    # random partition of 12 units vs one 12-unit batch
     split = []
     left = n_units
     while left:
         k = int(rng.integers(1, min(left, 5) + 1))
-        split.append(k)
+        split.append(k * unit)
         left -= k
-    a = run([n_units])
-    b = run(split)
-    # The recompute is exact in exact arithmetic; in f32 the junction
-    # state is reproduced through a differently-shaped Toeplitz (warm
-    # matrix) so ulp-level rounding differences remain — gate at f32
-    # resolution, not bitwise.
+    a = _stream(x, plan, [n_units * unit])
+    b = _stream(x, plan, split)
+    # the same arithmetic on differently-sized batches: float32 resolution
     np.testing.assert_allclose(a, b, atol=2e-6, rtol=0), split
     assert snr_db(a, b) > 110
 
 
 def test_wbfm_live_source_matches_golden_interpret():
-    """The gen-fused LIVE wbfm source (round 4: NCO tone generated in
-    VMEM inside the chain kernel) matches the float64 staged-semantics
-    golden across streamed batches — fully interpretable on CPU (the
-    polynomial NCO needs no hardware PRNG)."""
+    """The one-block LIVE wbfm source (fxpt-NCO tone generated per batch,
+    its history regenerated from the phase) matches the float64
+    staged-semantics golden across streamed batches."""
     from newsched_tpu.blocks import analog
     from newsched_tpu.runtime.graph import Flowgraph
 
@@ -200,8 +183,7 @@ def test_wbfm_live_source_matches_golden_interpret():
     n = 3 * 64 * 160
     src = analog.wbfm_live_source(c, center, fs, decim=D, deviation=75e3,
                                   resamp_decim=Rd, resamp_taps=rt,
-                                  frequency=tone, amplitude=0.8,
-                                  interpret=True)
+                                  frequency=tone, amplitude=0.8)
     hd = general.head(n // (D * Rd), dtype="rf32")
     snk = general.vector_sink(dtype="rf32")
     fg = Flowgraph(batch_size=64 * 160 // (D * Rd))
@@ -237,7 +219,7 @@ def test_wbfm_fused_recompile_fence_retune_local():
 
     fs, dev = 1e6, 75e3
     f_tone = 231_250.0
-    batch = 61440  # R=960 rows: >= B8 boundary (568) for the real taps
+    batch = 61440
     n_batches = 16
     n = batch * n_batches
     x = _fm_tone(batch * 4, fs, f_tone)
@@ -249,7 +231,7 @@ def test_wbfm_fused_recompile_fence_retune_local():
     thr = general.throttle(n / 1.2)  # ~1.2 s run: time to poke it
     blk = analog.wbfm_rcv_fused(
         firdes.low_pass(1.0, fs, 100e3, 30e3), center_freq=200e3, fs=fs,
-        decim=4, deviation=dev, resamp_decim=5, interpret=True)
+        decim=4, deviation=dev, resamp_decim=5)
     hd = general.head(n // 20, dtype="rf32")
     snk = general.vector_sink(dtype="rf32")
     fg = Flowgraph(batch_size=batch)
@@ -305,7 +287,7 @@ def test_wbfm_fused_retune_over_control_socket():
     thr = general.throttle(n / 1.2)
     blk = analog.wbfm_rcv_fused(
         firdes.low_pass(1.0, fs, 100e3, 30e3), center_freq=200e3, fs=fs,
-        decim=4, deviation=dev, resamp_decim=5, interpret=True)
+        decim=4, deviation=dev, resamp_decim=5)
     snk = general.vector_sink(dtype="rf32")
     hd = general.head(n // 20, dtype="rf32")
     fg.connect(src, 0, thr, 0)
@@ -337,34 +319,20 @@ def test_wbfm_fused_retune_over_control_socket():
     assert near1[256: sw - 64].all() and near2[sw:].all()
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_banded_xlate_matches_dense_property(seed):
-    """Round-5 banded xlate (groups > 1): random configs, banded vs dense
-    on the SAME input must agree to reduction-order ulps (the dropped
-    columns are structural zeros; only the MXU pairing changes)."""
-    from newsched_tpu.ops.pallas.wbfm_chain import (S, WbfmChainPlan,
-                                                    fold_planes,
-                                                    unfold_audio,
-                                                    wbfm_chain_step)
+@pytest.mark.parametrize("center", [0.0, 0.21e6, -0.3e6])
+def test_wbfm_chain_tunes_like_staged_rotator(center):
+    """The rotated taps and the constant demod rotation stand in exactly
+    for the staged fxpt-NCO rotator, at zero, positive and negative
+    center frequencies."""
+    from newsched_tpu.ops.wbfm_chain import WbfmChainPlan
 
-    rng = np.random.default_rng(seed)
-    ntaps = int(rng.integers(17, 120))
-    A = int(rng.integers(9, 40)) | 1
-    c = sig.firwin(ntaps, 0.2)
-    rt = sig.firwin(A, 0.15)
-    D, Rd = 4, 5
-    dphase = int(rng.integers(1, 1 << 31))
-    n = 64 * 8 * D * Rd * int(rng.integers(2, 5))
-    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
-         ).astype(np.complex64)
-    xp = fold_planes(jnp.asarray(x))
-
-    outs = {}
-    for G in (1, 0):  # 0 = auto
-        plan = WbfmChainPlan(c, dphase, D, rt, Rd, 0.7,
-                             precision=jax.lax.Precision.HIGHEST,
-                             xlate_groups=G or None)
-        carry = jnp.zeros((plan.B8, 2 * S), jnp.float32)
-        aud, _ = wbfm_chain_step(xp, carry, plan, interpret=True)
-        outs[G] = np.asarray(unfold_audio(aud))
-    assert snr_db(outs[1], outs[0]) > 110
+    c, rt, _, D, Rd, gain = _small_cfg()
+    dphase = int(nco.freq_to_dphase(center, 1e6))
+    plan = WbfmChainPlan(c, dphase, D, rt, Rd, gain)
+    rng = np.random.default_rng(3)
+    n = 2 * 64 * D * Rd
+    x = (rng.standard_normal(n)
+         + 1j * rng.standard_normal(n)).astype(np.complex64)
+    ref = golden_chain(x, c, dphase, D, rt, Rd, gain)
+    got = _stream(x, plan, [n // 2, n // 2])
+    assert snr_db(ref, got) > 100
